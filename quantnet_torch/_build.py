@@ -1,0 +1,123 @@
+"""Builds the CUDA kernels at first use: nvcc -> shared library -> ctypes.
+
+Each `csrc/<name>.cu` becomes its own shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds). The library's file name
+carries a hash of the sources and flags, under `build/quantnet_torch/` at the
+root of the checkout (listed in .gitignore). nvcc writes to a temporary name
+that `os.replace` moves into place, so a build cut off half way leaves no
+partial library and no lock for the next one to wait on. Libraries of several
+kernels are built by parallel nvcc processes.
+
+Nothing here runs at import time: the CPU tests import every module, and this
+machine may have no nvcc.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "quantnet_torch"
+# No --use_fast_math: the fused kernel needs IEEE division and
+# round-half-to-even. -Xptxas -v reports registers, shared memory and spills.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+NVCC_TIMEOUT_S = 600
+
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# C signature of each library's entry point: (function, argtypes).
+SIGNATURES = {
+    # int8_gemm_nt(a[M,K] s8, b[N,K] s8, c[M,N] s32, M, N, K, stream)
+    "int8_gemm": ("int8_gemm_nt", [_P, _P, _P, _I64, _I64, _I64, _P]),
+    # fused_dynamic_gemm(x[M,K] f32, w[N,K] s8, w_scale[N], bias[N],
+    #                    out[M,N] f32, M, N, K, block_k, stream)
+    "fused_dynamic_gemm": (
+        "fused_dynamic_gemm", [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+    ),
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+build_seconds: Dict[str, float] = {}
+build_log: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: building the CUDA kernels needs the CUDA toolkit")
+
+
+def _library_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, ctypes.CDLL]:
+    """Build (where not built yet) and load the named kernels' libraries, all
+    nvcc processes started together. Returns {name: library}; raises on a
+    failed build."""
+    names = [n for n in names if n not in _libs]
+    pending = {}
+    for name in names:
+        path = _library_path(name)
+        if path.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        pending[name] = (proc, tmp, path, time.perf_counter())
+    try:
+        for name, (proc, tmp, path, t0) in pending.items():
+            out, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+            build_seconds[name] = time.perf_counter() - t0
+            build_log[name] = out
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+            os.replace(tmp, path)
+    finally:
+        for proc, tmp, _, _ in pending.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if tmp.exists():
+                tmp.unlink()
+    for name in names:
+        lib = ctypes.CDLL(str(_library_path(name)))
+        fn_name, argtypes = SIGNATURES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _libs[name] = lib
+    return {n: _libs[n] for n in SIGNATURES if n in _libs}
+
+
+def kernel(name: str):
+    """The C entry point of one kernel, building its library at first use."""
+    if name not in _libs:
+        build([name])
+    return getattr(_libs[name], SIGNATURES[name][0])
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error (cudaGetLastError())."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")

@@ -1,0 +1,54 @@
+"""Carry the JAX package's parameter trees over into the port.
+
+The trees arrive as numpy: `jax.tree.map(np.asarray, tree)` keeps the JAX
+package's own leaf objects (its QTensor, with numpy `values` / `scale`, and
+its DynamicActQuant marker) and turns every array into numpy. This module
+reads those objects by their attributes and imports nothing of the JAX
+package. Layouts are the same on both sides (HWIO / (K, N) weights), so no
+array is transposed.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from quantnet_torch.core.config import resolve_device
+from quantnet_torch.core.types import DynamicActQuant, QTensor
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _convert(node, device):
+    if isinstance(node, dict):
+        return {k: _convert(v, device) for k, v in node.items()}
+    if hasattr(node, "values") and hasattr(node, "scale"):  # a QTensor
+        if getattr(node, "group_size", None) is not None:
+            raise NotImplementedError("group-wise QTensor weights come with a later slice")
+        zp = getattr(node, "zero_point", None)
+        qt = QTensor(
+            values=_tensor(node.values, device),
+            scale=_tensor(node.scale, device),
+            zero_point=None if zp is None else _tensor(zp, device),
+            axis=node.axis,
+            bits=node.bits,
+        )
+        qt.nk()
+        return qt
+    if hasattr(node, "handoff"):  # a DynamicActQuant marker
+        return DynamicActQuant(handoff=node.handoff)
+    if isinstance(node, (np.ndarray, np.generic)):
+        return _tensor(node, device)
+    raise TypeError(f"cannot carry over a {type(node).__name__} leaf")
+
+
+def from_jax_params(params_np: dict, state_np: dict, *, device="cuda"):
+    """fp32 (params, state) of the JAX package, as numpy -> the port's."""
+    device = resolve_device(device)
+    return _convert(params_np, device), _convert(state_np, device)
+
+
+def from_jax_qparams(qparams_np: dict, *, device="cuda") -> dict:
+    """A quantized params tree of the JAX package, as numpy -> the port's."""
+    return _convert(qparams_np, resolve_device(device))

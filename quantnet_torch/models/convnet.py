@@ -1,0 +1,104 @@
+"""SimpleConvNet (counterpart of quantnet/models/convnet.py:30-184).
+
+Three blocks of [Conv3x3 -> BN -> ReLU] x 2 -> MaxPool2 -> Dropout with
+widths 64/128/256, then Flatten -> FC(4096->512) -> BN1d -> ReLU -> Dropout ->
+FC(512->10). Parameters are nested dicts of tensors laid out as the JAX
+package lays them out (HWIO convs, (K, N) dense weights), and images enter
+NHWC as f32[N, 32, 32, 3], so the fc1 flatten order is (H, W, C).
+
+`apply` is the inference forward: with BN (the fp32 model) or BN-folded (the
+quantized model, activation fused into each op's epilogue). Training comes
+with a later slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from quantnet_torch.core.config import DEFAULT_FLAGS, Flags, resolve_device
+from quantnet_torch.ops.conv import conv2d
+from quantnet_torch.ops.layers import batchnorm_apply, batchnorm_init, dropout, maxpool2d
+from quantnet_torch.ops.linear import linear
+
+CONV_DEFS = [
+    ("conv1", 3, 64),
+    ("conv2", 64, 64),
+    ("conv3", 64, 128),
+    ("conv4", 128, 128),
+    ("conv5", 128, 256),
+    ("conv6", 256, 256),
+]
+QUANT_LAYERS = [name for name, _, _ in CONV_DEFS] + ["fc1", "fc2"]
+FC_DIM = 512
+
+
+def _kaiming(generator: torch.Generator, shape, fan_in: int, device) -> torch.Tensor:
+    # Kaiming-normal, fan-in, relu gain.
+    w = torch.randn(shape, generator=generator, device=generator.device)
+    return (w * math.sqrt(2.0 / fan_in)).to(device)
+
+
+def init(
+    generator: Optional[torch.Generator] = None,
+    *,
+    num_classes: int = 10,
+    image_size: int = 32,
+    device="cuda",
+) -> Tuple[dict, dict]:
+    """Returns (params, state) on `device`; state holds BN running stats.
+
+    Weights are drawn from `generator` (a fresh one seeded 0 if None) on the
+    generator's device, so a CPU generator gives the same weights on any
+    device.
+    """
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    params, state = {}, {}
+    for name, cin, cout in CONV_DEFS:
+        params[name] = {
+            "w": _kaiming(generator, (3, 3, cin, cout), 9 * cin, device),
+            "b": torch.zeros(cout, device=device),
+        }
+        params[name]["bn"], state[name] = batchnorm_init(cout, device)
+    feat = (image_size // 8) ** 2 * CONV_DEFS[-1][2]
+    params["fc1"] = {
+        "w": _kaiming(generator, (feat, FC_DIM), feat, device),
+        "b": torch.zeros(FC_DIM, device=device),
+    }
+    params["fc1"]["bn"], state["fc1"] = batchnorm_init(FC_DIM, device)
+    params["fc2"] = {
+        "w": _kaiming(generator, (FC_DIM, num_classes), FC_DIM, device),
+        "b": torch.zeros(num_classes, device=device),
+    }
+    return params, state
+
+
+def _conv_bn_relu(params, state, name, x, flags):
+    layer = params[name]
+    if "bn" in layer:
+        x = conv2d(layer, x, flags=flags)
+        return torch.relu(batchnorm_apply(layer["bn"], state[name], x))
+    return conv2d(layer, x, activation="relu", flags=flags)
+
+
+@torch.no_grad()
+def apply(
+    params: dict, state: dict, x: torch.Tensor, *, flags: Flags = DEFAULT_FLAGS
+) -> Tuple[torch.Tensor, dict]:
+    """Inference forward on NHWC images. Returns (logits, state)."""
+    for block in (("conv1", "conv2"), ("conv3", "conv4"), ("conv5", "conv6")):
+        for name in block:
+            x = _conv_bn_relu(params, state, name, x, flags)
+        x = dropout(maxpool2d(x), 0.25)
+
+    x = x.reshape(x.shape[0], -1)
+    fc1 = params["fc1"]
+    if "bn" in fc1:
+        x = torch.relu(batchnorm_apply(fc1["bn"], state["fc1"], linear(fc1, x, flags=flags)))
+    else:
+        x = linear(fc1, x, activation="relu", flags=flags)
+    x = dropout(x, 0.5)
+    return linear(params["fc2"], x, flags=flags), state
