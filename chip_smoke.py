@@ -3,26 +3,36 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line with its wall time:
+Two paths are driven: the dynamic-INT8 SimpleConvNet at bs1024 (K1 int8_gemm
+through im2col, K2 fused_dynamic_gemm) and the static-INT8 ResNet-50 at bs128,
+224x224 (K1 at 52 convs and the fc, K3 residual_boundary at 15 block
+boundaries). Phases, each printing one line with its wall time:
   1. device     the card's name and power limit (nvidia-smi); no card -> exit 1
-  2. build      nvcc builds every kernel of the path (quantnet_torch/_build.py)
-  3. int8_gemm  the kernel against its plain version, exact, at the reference
-                test shapes and the six conv GEMM shapes at bs1024
-  4. fused      the fused dynamic-quant GEMM against its plain version at fc1
-                and fc2, within float-order tolerance
-  5. times      each kernel at its main-path shapes (CUDA events, >= 20
-                launches after warm-up) beside its bound, its plain version and,
-                where one PyTorch call computes the same, that call
-  6. main path  init -> BN fold -> dynamic INT8 quantize -> forward of the
-                full-width SimpleConvNet at bs1024; launch counts, agreement
-                with the same model through the plain versions, throughput
-  7. kernels    one JSON line of every kernel with its numbers
+  2. build      nvcc builds every kernel (quantnet_torch/_build.py), in parallel
+  3. int8_gemm  K1 against its plain version, exact, at the reference test
+                shapes, the six conv GEMM shapes of the convnet at bs1024 and
+                every distinct GEMM shape of ResNet-50 at bs128
+  4. fused      K2 against its plain version at fc1 and fc2, f32 and bf16 x
+  5. boundary   K3 against its plain version, bit-equal, both variants, at the
+                JAX test shapes, an off-vector shape and ResNet-50's four
+                boundary shapes at bs128
+  6. times      each kernel at its main-path shapes (CUDA events after
+                warm-up), summed over one forward, beside its bound, its plain
+                version and, where one PyTorch call computes the same, that call
+  7. convnet    init -> BN fold -> dynamic INT8 -> forward at bs1024; launch
+                counts, agreement with the plain versions and fp32, throughput
+  8. resnet50   init -> BN fold -> min-max calibration (32 images) -> static
+                INT8 bake (fp32 stem) -> forward at bs128; launch counts,
+                agreement with the plain versions and fp32, throughput
+  9. kernels    one JSON line with an entry per kernel and path it runs on
+                (K1 twice: the convnet's and ResNet-50's), each with its numbers
 Any failed check raises before the last line, which is the only place that
 prints {"ok": true, ...}. Nothing is written outside build/ (gitignored).
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -33,6 +43,7 @@ SEED = 0
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and int8 ops/s.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
 # M x K x N of each conv GEMM at bs1024 (im2col: M = N*H*W, K = 9*C_in).
 CONV_SHAPES = [
     ("conv1", 1048576, 27, 64),
@@ -42,7 +53,16 @@ CONV_SHAPES = [
     ("conv5", 65536, 1152, 256),
     ("conv6", 65536, 2304, 256),
 ]
-FC_SHAPES = [("fc1", 1024, 4096, 512), ("fc2", 1024, 512, 10)]
+# fc1 takes conv6's bf16 handoff on the main path, fc2 fc1's f32 output.
+FC_SHAPES = [("fc1", 1024, 4096, 512, "bfloat16"), ("fc2", 1024, 512, 10, "float32")]
+RESNET_BATCH = 128
+RESNET_IMAGE = 224
+RESNET_CALIBRATION = 32
+# K3 shapes beyond ResNet-50's: the JAX package's test shapes
+# (tests/test_pallas_kernels.py:117-136) and one that is off the 16-element
+# vector step (C = 3, odd M).
+BOUNDARY_EXTRA = [("jax_i8", (2, 9, 9, 256), True), ("jax_f32", (4, 7, 7, 512), False),
+                  ("odd_i8", (1, 7, 9, 3), True), ("odd_f32", (1, 7, 9, 3), False)]
 REFERENCE_SHAPES = [("ref_48x200x136", 48, 200, 136), ("ref_7x33x5", 7, 33, 5)]
 # Kernel vs plain version, fused GEMM: both do the same f32 steps in the same
 # order, so only float order could part them.
@@ -53,6 +73,11 @@ LOGITS_RTOL = 1e-3
 # a sanity bound on the quantization error of eight layers (about 0.03 at
 # this seed's random weights and inputs in a CPU rehearsal at bs16).
 FP32_REL_L2_MAX = 0.1
+# Static INT8 ResNet-50 against its fp32 folded model, relative L2 of the
+# logits: min-max calibration on one random batch over 53 quantized layers.
+# A CPU rehearsal of this very configuration (seed 0 weights, 32 calibration
+# images, bs16 at 224x224) measured 0.0176; the bound leaves about 3x.
+RESNET_FP32_REL_L2_MAX = 0.05
 
 
 class SmokeFailure(RuntimeError):
@@ -122,20 +147,55 @@ def build_phase():
     phase("build", t0, f"nvcc + ctypes: {secs or 'already built'}")
 
 
+def resnet_shapes(batch: int, image: int):
+    """ResNet-50's int8 GEMMs and block boundaries at (batch, image): a Counter
+    of (M, K, N) over the 52 int8 convs (im2col: M = N*Ho*Wo, K = kh*kw*Cin;
+    the stem runs in fp32) and the fc, and one of ((N, H, W, C), int8
+    identity) over the 15 boundaries."""
+    from collections import Counter
+
+    from quantnet_torch.models.resnet import EXPANSION, STAGE_WIDTHS, VARIANTS
+
+    gemms, boundaries = Counter(), Counter()
+    _, stages = VARIANTS[50]
+    h = -(-image // 2)  # stem 7x7/2, SAME
+    h = (h + 2 - 3) // 2 + 1  # maxpool 3x3/2, pad 1
+    cin = 64
+    for si, (blocks, width) in enumerate(zip(stages, STAGE_WIDTHS)):
+        for bi in range(blocks):
+            stride = 2 if (bi == 0 and si > 0) else 1
+            ho, cout = -(-h // stride), width * EXPANSION
+            gemms[(batch * h * h, cin, width)] += 1
+            gemms[(batch * ho * ho, 9 * width, width)] += 1
+            gemms[(batch * ho * ho, width, cout)] += 1
+            downsample = bi == 0 and (stride != 1 or cin != cout)
+            if downsample:
+                gemms[(batch * ho * ho, cin, cout)] += 1
+            if not (si == len(stages) - 1 and bi == blocks - 1):
+                boundaries[((batch, ho, ho, cout), not downsample)] += 1
+            h, cin = ho, cout
+    gemms[(batch, cin, 1000)] += 1
+    return gemms, boundaries
+
+
 def int8_gemm_phase(torch, dev):
     from quantnet_torch.ops.int8_matmul import int8_gemm, int8_gemm_plain
 
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(SEED)
-    err = 0
-    for name, m, k, n in REFERENCE_SHAPES + CONV_SHAPES:
+    gemms, _ = resnet_shapes(RESNET_BATCH, RESNET_IMAGE)
+    shapes = [("convnet",) + s for s in REFERENCE_SHAPES + CONV_SHAPES] + [
+        ("resnet50", f"resnet50_{m}x{k}x{n}", m, k, n) for m, k, n in sorted(gemms)
+    ]
+    err = {"convnet": 0.0, "resnet50": 0.0}
+    for path, name, m, k, n in shapes:
         a = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
         b = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
         got = int8_gemm(a, b)
         torch.cuda.synchronize()
         ref = int8_gemm_plain(a, b)
         bad = (got != ref).sum().item()
-        err = max(err, (got.long() - ref.long()).abs().max().item())
+        err[path] = max(err[path], float((got.long() - ref.long()).abs().max().item()))
         if bad:
             idx = (got != ref).nonzero()[0].tolist()
             raise SmokeFailure(
@@ -143,13 +203,53 @@ def int8_gemm_phase(torch, dev):
                 f"{idx}: {got[idx[0], idx[1]].item()} vs {ref[idx[0], idx[1]].item()}"
             )
         del a, b, got, ref
-    phase("int8_gemm", t0, f"exact against int8_gemm_plain at "
-          f"{len(REFERENCE_SHAPES) + len(CONV_SHAPES)} shapes")
+    phase("int8_gemm", t0, f"exact against int8_gemm_plain at {len(shapes)} shapes "
+          f"({len(gemms)} of them ResNet-50's at bs{RESNET_BATCH})")
+    return err
+
+
+def boundary_inputs(torch, dev, shape, int8_id, g):
+    """f32 out, int8 or f32 identity, and the two domains, like a boundary's."""
+    from quantnet_torch.core.types import ActQuant
+
+    out = torch.randn(shape, generator=g, device=dev) * 3.0
+    if int8_id:
+        ident = torch.randint(-128, 128, shape, generator=g, device=dev, dtype=torch.int8)
+    else:
+        ident = torch.randn(shape, generator=g, device=dev)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    id_q = ActQuant(f32(0.043), i32(-5)) if int8_id else None
+    return out, ident, id_q, ActQuant(f32(0.061), i32(-128))
+
+
+def boundary_phase(torch, dev):
+    from quantnet_torch.ops.residual_boundary import residual_boundary, residual_boundary_plain
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    _, boundaries = resnet_shapes(RESNET_BATCH, RESNET_IMAGE)
+    cases = BOUNDARY_EXTRA + [
+        (f"resnet50_{'x'.join(map(str, shape))}_{'i8' if i8 else 'f32'}", shape, i8)
+        for shape, i8 in sorted(boundaries)
+    ]
+    err = 0
+    for name, shape, i8 in cases:
+        args = boundary_inputs(torch, dev, shape, i8, g)
+        got = residual_boundary(*args)
+        torch.cuda.synchronize()
+        ref = residual_boundary_plain(*args)
+        check(got.dtype == torch.int8 and got.shape == ref.shape, f"boundary {name}: {got.dtype}")
+        bad = (got != ref).sum().item()
+        err = max(err, (got.int() - ref.int()).abs().max().item())
+        check(bad == 0, f"residual_boundary {name}: {bad} of {ref.numel()} differ from the plain version")
+    phase("boundary", t0, f"bit-equal to residual_boundary_plain at {len(cases)} shapes, "
+          "both variants")
     return float(err)
 
 
-def fused_inputs(torch, dev, m, k, n, g):
-    x = torch.randn((m, k), generator=g, device=dev) * 2.0
+def fused_inputs(torch, dev, m, k, n, g, dtype="float32"):
+    x = (torch.randn((m, k), generator=g, device=dev) * 2.0).to(getattr(torch, dtype))
     w = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
     w_scale = torch.rand((n,), generator=g, device=dev) * 1e-2 + 1e-4
     bias = torch.randn((n,), generator=g, device=dev)
@@ -161,70 +261,115 @@ def fused_phase(torch, dev):
 
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    err = 0.0
-    for name, m, k, n in FC_SHAPES:
-        args = fused_inputs(torch, dev, m, k, n, g)
-        got = fused_dynamic_gemm(*args)
-        torch.cuda.synchronize()
-        ref = fused_dynamic_gemm_plain(*args)
-        e = (got - ref).abs().max().item()
-        err = max(err, e)
-        check(bool(torch.isfinite(got).all()), f"fused {name}: non-finite output")
-        check(
-            torch.allclose(got, ref, rtol=FUSED_RTOL, atol=FUSED_ATOL),
-            f"fused_dynamic_gemm {name}: max |kernel - plain| = {e}",
-        )
+    err, errs = 0.0, []
+    for name, m, k, n, _ in FC_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            args = fused_inputs(torch, dev, m, k, n, g, dtype)
+            got = fused_dynamic_gemm(*args)
+            torch.cuda.synchronize()
+            ref = fused_dynamic_gemm_plain(*args)
+            e = (got - ref).abs().max().item()
+            err = max(err, e)
+            errs.append(f"{name} {dtype} {e!r}")
+            check(bool(torch.isfinite(got).all()), f"fused {name} {dtype}: non-finite output")
+            check(
+                torch.allclose(got, ref, rtol=FUSED_RTOL, atol=FUSED_ATOL),
+                f"fused_dynamic_gemm {name} {dtype}: max |kernel - plain| = {e}",
+            )
     phase("fused", t0, f"within rtol {FUSED_RTOL}, atol {FUSED_ATOL} of "
-          f"fused_dynamic_gemm_plain at fc1, fc2; max abs err {err!r}")
+          f"fused_dynamic_gemm_plain at fc1, fc2, f32 and bf16 x; max abs err: {', '.join(errs)}")
     return err
 
 
-def times_phase(torch, dev):
-    """Per-shape times; returns the per-forward sums of each kernel."""
-    from quantnet_torch.ops.fused_dynamic_matmul import fused_dynamic_gemm, fused_dynamic_gemm_plain
+def _sums():
+    return {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+            "bytes_ms": 0.0, "ops_ms": 0.0}
+
+
+def _add(acc, count, ms, plain, nbytes, ops, lib=0.0):
+    acc["ms"] += count * ms
+    acc["plain_ms"] += count * plain
+    acc["bound_ms"] += count * bound(nbytes, ops)[0]
+    acc["bytes_ms"] += count * nbytes / HBM_BYTES_PER_S * 1e3
+    acc["ops_ms"] += count * ops / INT8_OPS_PER_S * 1e3
+    acc["library_ms"] += count * lib
+
+
+def bound_by(acc) -> str:
+    return "bytes" if acc["bytes_ms"] >= acc["ops_ms"] else "operations"
+
+
+def _time_int8_gemm(torch, dev, g, m, k, n, iters):
+    """(kernel, plain, torch._int_mm) ms of one int8 GEMM."""
     from quantnet_torch.ops.int8_matmul import int8_gemm, int8_gemm_plain
+
+    a = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    b = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+    ms = time_ms(lambda: int8_gemm(a, b), iters)
+    plain = time_ms(lambda: int8_gemm_plain(a, b), max(iters // 4, 3))
+    # torch._int_mm wants M > 16 and K, N % 8 == 0: zero-padding K and N
+    # leaves the product unchanged (conv1's K = 27, the fc's N = 1000 do not
+    # need it; M = 128 rows is fine). A yardstick only.
+    kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
+    ap = torch.nn.functional.pad(a, (0, kp - k))
+    bp = torch.nn.functional.pad(b, (0, kp - k, 0, np_ - n)).t()
+    lib = time_ms(lambda: torch._int_mm(ap, bp), iters)
+    return ms, plain, lib
+
+
+def times_phase(torch, dev):
+    """Per-shape times; returns the per-forward sums of each kernel: K1 on
+    the convnet and on ResNet-50, K2 on the convnet, K3 on ResNet-50."""
+    from quantnet_torch.ops.fused_dynamic_matmul import fused_dynamic_gemm, fused_dynamic_gemm_plain
+    from quantnet_torch.ops.residual_boundary import residual_boundary, residual_boundary_plain
 
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
-    k1 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+    k1_convnet, k1_resnet, k2, k3 = _sums(), _sums(), _sums(), _sums()
     for name, m, k, n in CONV_SHAPES:
-        a = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
-        b = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
-        ms = time_ms(lambda: int8_gemm(a, b))
-        plain = time_ms(lambda: int8_gemm_plain(a, b))
-        b_ms, by = bound(m * k + k * n + 4 * m * n, 2 * m * n * k)
-        # torch._int_mm wants K % 8 == 0: conv1's K = 27 is zero-padded to 32,
-        # which leaves the product unchanged. A yardstick only.
-        kp = -(-k // 8) * 8
-        ap = torch.nn.functional.pad(a, (0, kp - k))
-        bp = torch.nn.functional.pad(b, (0, kp - k)).t()
-        lib = time_ms(lambda: torch._int_mm(ap, bp))
-        print(f"  int8_gemm {name} {m}x{k}x{n}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms "
-              f"({by}), plain {plain:.4f} ms, torch._int_mm {lib:.4f} ms")
-        k1["ms"] += ms
-        k1["plain_ms"] += plain
-        k1["bound_ms"] += b_ms
-        k1["bytes_ms"] += (m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S * 1e3
-        k1["ops_ms"] += 2 * m * n * k / INT8_OPS_PER_S * 1e3
-        k1["library_ms"] += lib
-        del a, b, ap, bp
-    k2 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
-    for name, m, k, n in FC_SHAPES:
-        args = fused_inputs(torch, dev, m, k, n, g)
+        ms, plain, lib = _time_int8_gemm(torch, dev, g, m, k, n, 20)
+        nbytes, ops = m * k + k * n + 4 * m * n, 2 * m * n * k
+        print(f"  int8_gemm convnet {name} {m}x{k}x{n}: kernel {ms:.4f} ms, bound "
+              f"{bound(nbytes, ops)[0]:.4f} ms ({bound(nbytes, ops)[1]}), plain {plain:.4f} ms, "
+              f"torch._int_mm {lib:.4f} ms")
+        _add(k1_convnet, 1, ms, plain, nbytes, ops, lib)
+    gemms, boundaries = resnet_shapes(RESNET_BATCH, RESNET_IMAGE)
+    for (m, k, n), count in sorted(gemms.items()):
+        ms, plain, lib = _time_int8_gemm(torch, dev, g, m, k, n, 10)
+        nbytes, ops = m * k + k * n + 4 * m * n, 2 * m * n * k
+        print(f"  int8_gemm resnet50 {m}x{k}x{n} x{count}: kernel {ms:.4f} ms, bound "
+              f"{bound(nbytes, ops)[0]:.4f} ms ({bound(nbytes, ops)[1]}), plain {plain:.4f} ms, "
+              f"torch._int_mm {lib:.4f} ms")
+        _add(k1_resnet, count, ms, plain, nbytes, ops, lib)
+    for name, m, k, n, dtype in FC_SHAPES:
+        args = fused_inputs(torch, dev, m, k, n, g, dtype)
         ms = time_ms(lambda: fused_dynamic_gemm(*args))
         plain = time_ms(lambda: fused_dynamic_gemm_plain(*args))
-        nbytes = 4 * m * k + k * n + 8 * n + 4 * m * n
-        b_ms, by = bound(nbytes, 2 * m * n * k)
-        print(f"  fused_dynamic_gemm {name} {m}x{k}x{n}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms "
-              f"({by}), plain {plain:.4f} ms")
-        k2["ms"] += ms
-        k2["plain_ms"] += plain
-        k2["bound_ms"] += b_ms
-        k2["bytes_ms"] += nbytes / HBM_BYTES_PER_S * 1e3
-        k2["ops_ms"] += 2 * m * n * k / INT8_OPS_PER_S * 1e3
-    phase("times", t0, f"int8_gemm {k1['ms']:.4f} ms per forward (bound {k1['bound_ms']:.4f}); "
-          f"fused_dynamic_gemm {k2['ms']:.4f} ms (bound {k2['bound_ms']:.4f})")
-    return k1, k2
+        nbytes = args[0].element_size() * m * k + k * n + 8 * n + 4 * m * n
+        ops = 2 * m * n * k
+        print(f"  fused_dynamic_gemm {name} {m}x{k}x{n} {dtype} x: kernel {ms:.4f} ms, bound "
+              f"{bound(nbytes, ops)[0]:.4f} ms ({bound(nbytes, ops)[1]}), plain {plain:.4f} ms")
+        _add(k2, 1, ms, plain, nbytes, ops)
+    for (shape, i8), count in sorted(boundaries.items()):
+        args = boundary_inputs(torch, dev, shape, i8, g)
+        ms = time_ms(lambda: residual_boundary(*args))
+        plain = time_ms(lambda: residual_boundary_plain(*args))
+        elems = math.prod(shape)
+        # f32 out read, identity read (1 or 4 bytes), int8 q written; about
+        # 8 flops per element (dequantize 2, add, relu, divide, round, add, clamp).
+        nbytes, ops = elems * (6 if i8 else 9), 8 * elems
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"  residual_boundary {'x'.join(map(str, shape))} {'int8' if i8 else 'f32'} identity "
+              f"x{count}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms (bytes), plain {plain:.4f} ms")
+        _add(k3, count, ms, plain, nbytes, 0)
+        k3["ops_ms"] += count * ops / F32_OPS_PER_S * 1e3
+    phase("times", t0, f"per forward: int8_gemm convnet {k1_convnet['ms']:.4f} ms (bound "
+          f"{k1_convnet['bound_ms']:.4f}), resnet50 {k1_resnet['ms']:.4f} ms (bound "
+          f"{k1_resnet['bound_ms']:.4f}, torch._int_mm {k1_resnet['library_ms']:.4f}); "
+          f"fused_dynamic_gemm {k2['ms']:.4f} ms (bound {k2['bound_ms']:.4f}); "
+          f"residual_boundary {k3['ms']:.4f} ms (bound {k3['bound_ms']:.4f}, plain "
+          f"{k3['plain_ms']:.4f})")
+    return k1_convnet, k1_resnet, k2, k3
 
 
 def main_path_phase(torch, dev):
@@ -279,6 +424,66 @@ def main_path_phase(torch, dev):
     return launches
 
 
+def resnet_phase(torch, dev):
+    """The static-INT8 ResNet-50 path at bs128, 224x224, as a user builds it."""
+    from quantnet_torch.bench.benchmark import InferenceBenchmark
+    from quantnet_torch.core.config import Flags
+    from quantnet_torch.models import resnet
+    from quantnet_torch.ops.fused_dynamic_matmul import fused_dynamic_gemm
+    from quantnet_torch.ops.int8_matmul import int8_gemm
+    from quantnet_torch.ops.residual_boundary import residual_boundary
+    from quantnet_torch.quantize import fold, static
+
+    t0 = time.perf_counter()
+    params, state = resnet.init(torch.Generator().manual_seed(SEED), depth=50, device=dev)
+    shape = (RESNET_CALIBRATION, RESNET_IMAGE, RESNET_IMAGE, 3)
+    calib = torch.randn(shape, generator=torch.Generator().manual_seed(SEED + 1)).to(dev)
+    qparams, qstate = static.quantize(params, state, resnet.apply, [calib], skip_first_layer=True)
+    shape = (RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3)
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(SEED + 2)).to(dev)
+    torch.cuda.synchronize()
+    set_up_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+
+    int8_gemm.launches = residual_boundary.launches = fused_dynamic_gemm.launches = 0
+    logits, _ = resnet.apply(qparams, qstate, x)
+    torch.cuda.synchronize()
+    launches = {"int8_gemm": int8_gemm.launches, "residual_boundary": residual_boundary.launches,
+                "fused_dynamic_gemm": fused_dynamic_gemm.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    check(tuple(logits.shape) == (RESNET_BATCH, 1000), f"logits shape {tuple(logits.shape)}")
+    check(logits.dtype == torch.float32, f"logits dtype {logits.dtype}")
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    check(launches == {"int8_gemm": 53, "residual_boundary": 15, "fused_dynamic_gemm": 0},
+          f"launches per forward {launches}, expected 53 int8_gemm and 15 residual_boundary")
+
+    ref, _ = resnet.apply(qparams, qstate, x, flags=Flags(plain=True))
+    scale = ref.abs().max().item()
+    err = (logits - ref).abs().max().item()
+    check(err <= LOGITS_RTOL * max(scale, 1.0),
+          f"resnet50 vs plain versions: max |diff| {err} > {LOGITS_RTOL} * max|logit| {scale}")
+    fparams, fstate = fold.fold_model(params, state)
+    fp32, _ = resnet.apply(fparams, fstate, x)
+    rel = ((logits - fp32).norm() / fp32.norm()).item()
+    agree = (logits.argmax(1) == fp32.argmax(1)).float().mean().item()
+    check(rel < RESNET_FP32_REL_L2_MAX,
+          f"static INT8 vs fp32 logits: relative L2 {rel} >= {RESNET_FP32_REL_L2_MAX}")
+    phase("resnet50", t0, f"set-up {set_up_s:.2f} s; logits {tuple(logits.shape)} finite; "
+          f"launches {launches}; max |kernels - plain| {err!r} (max|logit| {scale:.4f}"
+          f"{', bit-equal' if err == 0 else ''}); vs fp32: rel L2 {rel:.4f}, top-1 agreement "
+          f"{agree:.4f}; peak {peak_gib:.2f} GiB")
+
+    t1 = time.perf_counter()
+    bench = InferenceBenchmark(image_size=RESNET_IMAGE, warmup=5, iters=30)
+    stats = bench.measure(resnet.apply, qparams, qstate, RESNET_BATCH)
+    phase("resnet50 bench", t1, f"bs{RESNET_BATCH} {RESNET_IMAGE}x{RESNET_IMAGE}: p50 "
+          f"{stats['p50_ms']:.4f} ms, {stats['images_per_s_p50']:.1f} img/s (mean "
+          f"{stats['mean_ms']:.4f} ms, min {stats['min_ms']:.4f}, max {stats['max_ms']:.4f}, "
+          f"{stats['iters']} iters) on {stats['device']}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -287,31 +492,38 @@ def main() -> int:
     build_phase()
     int8_err = int8_gemm_phase(torch, dev)
     fused_err = fused_phase(torch, dev)
-    k1, k2 = times_phase(torch, dev)
-    launches = main_path_phase(torch, dev)
+    boundary_err = boundary_phase(torch, dev)
+    k1_convnet, k1, k2, k3 = times_phase(torch, dev)
+    convnet_launches = main_path_phase(torch, dev)
+    resnet_launches = resnet_phase(torch, dev)
 
+    def entry(kname, path, source, replaces, launches, err, sums, library):
+        return {
+            "name": kname, "path": path, "route": "cuda",
+            "source": f"quantnet_torch/csrc/{source}", "replaces": replaces,
+            "launches": launches, "max_abs_err": err,
+            "ms": sums["ms"], "plain_ms": sums["plain_ms"], "bound_ms": sums["bound_ms"],
+            "bound_by": bound_by(sums), "library_ms": library,
+        }
+
+    # One entry per (kernel, path): K1 runs on both paths, at other shapes,
+    # so each path's launches, times and bound stay comparable across runs.
+    k1_replaces = "quantnet/ops/pallas_matmul.py:54"
     kernels = [
-        {
-            "name": "int8_gemm", "route": "cuda", "source": "quantnet_torch/csrc/int8_gemm.cu",
-            "replaces": "quantnet/ops/pallas_matmul.py:54", "launches": launches["int8_gemm"],
-            "max_abs_err": int8_err, "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-            "bound_ms": k1["bound_ms"],
-            "bound_by": "bytes" if k1["bytes_ms"] >= k1["ops_ms"] else "operations",
-            "library_ms": k1["library_ms"],
-        },
-        {
-            "name": "fused_dynamic_gemm", "route": "cuda",
-            "source": "quantnet_torch/csrc/fused_dynamic_gemm.cu",
-            "replaces": "quantnet/ops/pallas_matmul.py:143",
-            "launches": launches["fused_dynamic_gemm"], "max_abs_err": fused_err,
-            "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
-            "bound_by": "bytes" if k2["bytes_ms"] >= k2["ops_ms"] else "operations",
-            "library_ms": None,
-        },
+        entry("int8_gemm", "convnet", "int8_gemm.cu", k1_replaces, convnet_launches["int8_gemm"],
+              int8_err["convnet"], k1_convnet, k1_convnet["library_ms"]),
+        entry("int8_gemm", "resnet50", "int8_gemm.cu", k1_replaces, resnet_launches["int8_gemm"],
+              int8_err["resnet50"], k1, k1["library_ms"]),
+        entry("fused_dynamic_gemm", "convnet", "fused_dynamic_gemm.cu",
+              "quantnet/ops/pallas_matmul.py:143", convnet_launches["fused_dynamic_gemm"],
+              fused_err, k2, None),
+        entry("residual_boundary", "resnet50", "residual_boundary.cu",
+              "quantnet/ops/pallas_boundary.py:85", resnet_launches["residual_boundary"],
+              boundary_err, k3, None),
     ]
-    print("kernels: int8_gemm exact at 8 shapes, 6 launches per forward; "
-          f"fused_dynamic_gemm within tolerance (max abs err {fused_err!r}), 2 launches per "
-          "forward; residual_boundary (quantnet/ops/pallas_boundary.py:85) not ported")
+    print(f"kernels: int8_gemm exact on both paths; fused_dynamic_gemm max abs err "
+          f"{fused_err!r}; residual_boundary bit-equal; no PyTorch call computes K2 or K3 "
+          "alone (library: none)")
     print(f"total {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

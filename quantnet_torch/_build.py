@@ -32,15 +32,21 @@ NVCC_FLAGS = (
 )
 NVCC_TIMEOUT_S = 600
 
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I64, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 # C signature of each library's entry point: (function, argtypes).
 SIGNATURES = {
     # int8_gemm_nt(a[M,K] s8, b[N,K] s8, c[M,N] s32, M, N, K, stream)
     "int8_gemm": ("int8_gemm_nt", [_P, _P, _P, _I64, _I64, _I64, _P]),
-    # fused_dynamic_gemm(x[M,K] f32, w[N,K] s8, w_scale[N], bias[N],
-    #                    out[M,N] f32, M, N, K, block_k, stream)
+    # fused_dynamic_gemm(x[M,K] f32 or bf16, w[N,K] s8, w_scale[N], bias[N],
+    #                    out[M,N] f32, M, N, K, block_k, x_is_bf16, stream)
     "fused_dynamic_gemm": (
-        "fused_dynamic_gemm", [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+        "fused_dynamic_gemm", [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
+    ),
+    # residual_boundary(out[n] f32, identity[n] s8 or f32, q[n] s8, n,
+    #                   int8_identity, id_scale, id_zero_point, out_scale,
+    #                   out_zero_point, stream)
+    "residual_boundary": (
+        "residual_boundary", [_P, _P, _P, _I64, _I64, _F, _F, _F, _F, _P],
     ),
 }
 

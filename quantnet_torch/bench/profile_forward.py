@@ -1,6 +1,11 @@
-"""Where the time of one dynamic-INT8 SimpleConvNet forward goes, on the card.
+"""Where the time of one forward goes, on the card.
 
     python -m quantnet_torch.bench.profile_forward [--batch 1024]
+    python -m quantnet_torch.bench.profile_forward --model resnet50 [--batch 128]
+
+--model convnet (the default) is the dynamic-INT8 SimpleConvNet at 32x32;
+resnet50 the static-INT8 ResNet-50 at 224x224 as quantnet_torch.entry.
+resnet_entry builds it (fp32 stem, min-max calibration on 32 images).
 
 Traces five forwards after warm-up with torch.profiler (CPU and CUDA
 activity) and prints device time by kernel name, the device's busy share of
@@ -15,35 +20,38 @@ import time
 import torch
 
 ITERS = 5
-TOP = 15
+TOP = 20
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--model", choices=("convnet", "resnet50"), default="convnet")
+    ap.add_argument("--batch", type=int, default=None, help="1024 (convnet) or 128 (resnet50)")
     args = ap.parse_args(argv)
 
     from quantnet_torch.core.config import resolve_device
-    from quantnet_torch.models import convnet
-    from quantnet_torch.quantize import dynamic
+    from quantnet_torch.entry import entry, resnet_entry
 
     dev = resolve_device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
-    params, state = convnet.init(torch.Generator().manual_seed(0), device=dev)
-    q, qs = dynamic.quantize(params, state)
-    x = torch.randn((args.batch, 32, 32, 3), generator=torch.Generator().manual_seed(1)).to(dev)
+    if args.model == "resnet50":
+        args.batch = args.batch or 128
+        fn, (q, qs, x) = resnet_entry(dev, batch_size=args.batch)
+    else:
+        args.batch = args.batch or 1024
+        fn, (q, qs, x) = entry(dev, batch_size=args.batch)
     for _ in range(5):
-        convnet.apply(q, qs, x)
+        fn(q, qs, x)
     torch.cuda.synchronize()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(ITERS):
-            convnet.apply(q, qs, x)
+            fn(q, qs, x)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -55,7 +63,7 @@ def main(argv=None) -> int:
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     print(f"card: {card}")
-    print(f"bs{args.batch}, {ITERS} forwards: wall {wall_ms / ITERS:.4f} ms per forward, "
+    print(f"{args.model} bs{args.batch}, {ITERS} forwards: wall {wall_ms / ITERS:.4f} ms per forward, "
           f"device busy {busy_ms / ITERS:.4f} ms per forward "
           f"({100 * busy_ms / wall_ms:.1f}% of wall; idle {100 - 100 * busy_ms / wall_ms:.1f}%)")
     if not rows:

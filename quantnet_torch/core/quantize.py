@@ -10,6 +10,16 @@ Quantizing divides by the scale, never multiplies by a reciprocal. PyTorch's
 CUDA division turns `tensor / python_number` into a multiply by the
 reciprocal, which can be an ulp off true division, so every divisor here is a
 tensor (`_div`).
+
+The exceptions copy the JAX package's jitted transforms. Inside jit, XLA
+rewrites a division by a compile-time constant into a multiply by the
+constant's f32 reciprocal: `amax / 127` in the jitted weight bakes
+(quantnet/quantize/dynamic.py:31-69, static.py:255-304) and `/ 255` in
+`affine_qparams` under calibration's jitted extraction (static.py:100).
+`quantize_symmetric` (weights only) and `affine_qparams` (calibration only)
+always compute those the same way, so a tree baked by the port holds the
+same bits as one baked by the JAX package; `symmetric_scale` serves both the
+eager activation path and the weight bake, and takes `reciprocal` to choose.
 """
 from __future__ import annotations
 
@@ -32,6 +42,12 @@ def _div(x: torch.Tensor, d) -> torch.Tensor:
     return x / d
 
 
+def _mul_reciprocal(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x * f32(1 / c): x / c as XLA computes it under jit."""
+    inv = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(c, dtype=torch.float32)
+    return x * inv.to(x.device)
+
+
 def _reduce_dims(ndim: int, axis: Optional[int]) -> Tuple[int, ...]:
     if axis is None:
         return tuple(range(ndim))
@@ -45,23 +61,35 @@ def sym_max(bits: int) -> float:
 
 
 def symmetric_scale(
-    x: torch.Tensor, axis: Optional[int] = None, bits: int = 8
+    x: torch.Tensor, axis: Optional[int] = None, bits: int = 8, *, reciprocal: bool = False
 ) -> torch.Tensor:
     """absmax / sym_max(bits); () per-tensor, or keepdim-shaped per-channel."""
     dims = _reduce_dims(x.ndim, axis)
     amax = torch.amax(torch.abs(x), dim=dims, keepdim=axis is not None)
     # The floor is taken in x's dtype, as the JAX package does for bf16 input.
-    return _div(torch.clamp_min(amax, EPS).float(), sym_max(bits))
+    amax = torch.clamp_min(amax, EPS).float()
+    return _mul_reciprocal(amax, sym_max(bits)) if reciprocal else _div(amax, sym_max(bits))
 
 
-def quantize_symmetric(
-    x: torch.Tensor, axis: Optional[int] = None, bits: int = 8
-) -> QTensor:
-    """Symmetric quantization (weights); per-channel along `axis` if given."""
+def quantize_symmetric(x: torch.Tensor, axis: Optional[int] = None, bits: int = 8) -> QTensor:
+    """Symmetric quantization (weights); per-channel along `axis` if given.
+    The scale is `amax * f32(1 / sym_max)`, as XLA computes the jitted bakes."""
     m = sym_max(bits)
-    scale = symmetric_scale(x, axis, bits)
+    scale = symmetric_scale(x, axis, bits, reciprocal=True)
     q = torch.clamp(torch.round(x.float() / scale), -m, m)
     return QTensor(values=q.to(torch.int8), scale=scale, axis=axis, bits=bits)
+
+
+def affine_qparams(xmin: torch.Tensor, xmax: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Asymmetric (f32 scale, int32 zero_point) covering [min(xmin, 0),
+    max(xmax, 0)]: the range is widened to hold 0 exactly, so padding with
+    the zero point is exact (quantnet/core/quantize.py:102-116). The span is
+    multiplied by f32(1 / 255), as XLA computes it under calibration's jit."""
+    xmin = torch.clamp_max(xmin.float(), 0.0)
+    xmax = torch.clamp_min(xmax.float(), 0.0)
+    scale = torch.clamp_min(_mul_reciprocal(xmax - xmin, float(INT8_MAX - INT8_MIN)), EPS)
+    zero_point = torch.clamp(torch.round(INT8_MIN - xmin / scale), INT8_MIN, INT8_MAX)
+    return scale, zero_point.to(torch.int32)
 
 
 def quantize_affine(
@@ -91,3 +119,11 @@ def dequantize(
     if zero_point is not None:
         v = v - torch.as_tensor(zero_point, dtype=dtype, device=v.device)
     return v * torch.as_tensor(scale, dtype=dtype, device=v.device)
+
+
+def maybe_requantize(y: torch.Tensor, out_quant) -> torch.Tensor:
+    """The int8 tensor-handoff epilogue: requantize `y` into the consumer's
+    frozen domain when `out_quant` (an ActQuant) is given, else pass it on."""
+    if out_quant is None:
+        return y
+    return quantize_affine(y, out_quant.scale, out_quant.zero_point)

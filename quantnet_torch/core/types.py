@@ -1,9 +1,9 @@
 """Quantized-tensor data types (counterpart of quantnet/core/types.py).
 
 Plain dataclasses of tensors: PyTorch runs eagerly, so nothing here needs to be
-a pytree. A layer dict holds a `QTensor` under 'w' once quantized, and the
-`DynamicActQuant` marker under 'aq' to switch the layer ops to the
-dynamic-INT8 path.
+a pytree. A layer dict holds a `QTensor` under 'w' once quantized, and under
+'aq' either the `DynamicActQuant` marker (dynamic INT8) or an `ActQuant` with
+frozen parameters (static INT8).
 """
 from __future__ import annotations
 
@@ -78,3 +78,26 @@ class DynamicActQuant:
     @property
     def handoff_dtype(self) -> Optional[torch.dtype]:
         return None if self.handoff is None else _HANDOFF_DTYPES[self.handoff]
+
+
+@dataclass
+class ActQuant:
+    """Frozen (static-PTQ) quantization parameters of one layer input
+    (quantnet/core/types.py:102-117): f32 scale () and int32 zero_point ().
+
+    Under a layer's 'aq' it switches the layer ops to the static-INT8 path;
+    passed as `out_quant` it makes a producer requantize its output into this
+    domain (the int8 tensor handoff).
+    """
+
+    scale: torch.Tensor
+    zero_point: torch.Tensor
+    _host: Optional[tuple] = field(default=None, repr=False, compare=False)
+
+    def host_scalars(self) -> tuple:
+        """(scale, zero_point) as Python floats, for a kernel that takes them
+        by value. The parameters are frozen, so they are read off the device
+        once and kept."""
+        if self._host is None:
+            self._host = (float(self.scale), float(self.zero_point))
+        return self._host

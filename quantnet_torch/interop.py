@@ -1,8 +1,9 @@
 """Carry the JAX package's parameter trees over into the port.
 
 The trees arrive as numpy: `jax.tree.map(np.asarray, tree)` keeps the JAX
-package's own leaf objects (its QTensor, with numpy `values` / `scale`, and
-its DynamicActQuant marker) and turns every array into numpy. This module
+package's own leaf objects (its QTensor, with numpy `values` / `scale`, its
+ActQuant with numpy `scale` / `zero_point`, and its DynamicActQuant marker)
+and turns every array into numpy (a static layer's 'wsum' among them). This module
 reads those objects by their attributes and imports nothing of the JAX
 package. Layouts are the same on both sides (HWIO / (K, N) weights), so no
 array is transposed.
@@ -13,7 +14,7 @@ import numpy as np
 import torch
 
 from quantnet_torch.core.config import resolve_device
-from quantnet_torch.core.types import DynamicActQuant, QTensor
+from quantnet_torch.core.types import ActQuant, DynamicActQuant, QTensor
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -36,6 +37,8 @@ def _convert(node, device):
         )
         qt.nk()
         return qt
+    if hasattr(node, "scale") and hasattr(node, "zero_point"):  # an ActQuant ('aq', 'oq')
+        return ActQuant(scale=_tensor(node.scale, device), zero_point=_tensor(node.zero_point, device))
     if hasattr(node, "handoff"):  # a DynamicActQuant marker
         return DynamicActQuant(handoff=node.handoff)
     if isinstance(node, (np.ndarray, np.generic)):

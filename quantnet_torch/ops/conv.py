@@ -1,31 +1,38 @@
 """2-D convolution with quantization-aware dispatch, NHWC / HWIO (counterpart
 of quantnet/ops/conv.py:59-136, 139-300).
 
-Two paths, picked by the layer's leaves:
+Three paths, picked by the layer's leaves:
 
   fp32/bf16    w: Tensor                -> conv in the activation dtype
   dynamic PTQ  w: QTensor, aq dynamic   -> per-tensor quant, zero pre-pad,
                                            im2col, int8 GEMM kernel, f32
                                            epilogue, activation, handoff cast
+  static PTQ   w: QTensor, aq ActQuant  -> frozen affine quant (or int8 input
+                                           already in this layer's domain),
+                                           zero-point pre-pad, im2col, int8
+                                           GEMM kernel, - zp * wsum, f32
+                                           epilogue, activation
 
-The int8 conv always lowers through im2col to the int8 GEMM kernel, as the
-JAX package does under `int8_conv_backend="im2col"`. The weight-only and
-static paths, groups, relu6 and the probe / QAT branches come with later
-slices and raise here.
+Every path takes `out_quant` (the consumer's ActQuant) and then requantizes
+its output to int8 in that domain: the static int8 tensor handoff. The int8
+conv always lowers through im2col to the int8 GEMM kernel, as the JAX package
+does under `int8_conv_backend="im2col"`. The weight-only path, groups, relu6
+and the probe / QAT branches come with later slices and raise here.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from quantnet_torch.core.config import DEFAULT_FLAGS, Flags
-from quantnet_torch.core.quantize import dynamic_quantize
-from quantnet_torch.core.types import DynamicActQuant, QTensor
+from quantnet_torch.core.quantize import dynamic_quantize, maybe_requantize, quantize_affine
+from quantnet_torch.core.types import ActQuant, DynamicActQuant, QTensor
 from quantnet_torch.ops.linear import apply_act, int8_matmul
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
+Padding = Union[str, Pads]
 
 
 def _same_pads(h: int, w: int, kh: int, kw: int, stride: int) -> Pads:
@@ -40,9 +47,27 @@ def _same_pads(h: int, w: int, kh: int, kw: int, stride: int) -> Pads:
     return one(h, kh), one(w, kw)
 
 
-def _pad_nhwc(x: torch.Tensor, pads: Pads) -> torch.Tensor:
+def _pad_nhwc(x: torch.Tensor, pads: Pads, value: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pad H and W with zeros, or with `value` (a 0-d tensor of x's dtype,
+    the zero point on the static path; read on the device, no host sync)."""
     (pt, pb), (pl, pr) = pads
-    return F.pad(x, (0, 0, pl, pr, pt, pb))
+    if value is None or not any((pt, pb, pl, pr)):
+        return F.pad(x, (0, 0, pl, pr, pt, pb))
+    n, h, w, c = x.shape
+    out = value.reshape(1, 1, 1, 1).expand(n, h + pt + pb, w + pl + pr, c).contiguous()
+    out[:, pt : pt + h, pl : pl + w] = x
+    return out
+
+
+def _resolve_pads(padding: Padding, h: int, w: int, kh: int, kw: int, stride: int) -> Pads:
+    if padding == "SAME":
+        return _same_pads(h, w, kh, kw, stride)
+    if padding == "VALID":
+        return ((0, 0), (0, 0))
+    if isinstance(padding, str):
+        raise ValueError(f"padding must be 'SAME', 'VALID' or explicit pads, got {padding!r}")
+    (pt, pb), (pl, pr) = padding
+    return ((int(pt), int(pb)), (int(pl), int(pr)))
 
 
 def _im2col(x: torch.Tensor, kh: int, kw: int, stride: int) -> torch.Tensor:
@@ -56,12 +81,33 @@ def _im2col(x: torch.Tensor, kh: int, kw: int, stride: int) -> torch.Tensor:
     return p.reshape(n, ho, wo, kh * kw * c)
 
 
+def _conv_no_tf32(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    """F.conv2d with f32 kept f32: cuDNN takes f32 convs in TF32 by default,
+    which keeps about three decimal digits; the JAX package's f32 conv (an
+    fp32 stem under skip_first_layer) does not round its operands. PyTorch's
+    scoped `cudnn.flags` holds TF32 off for this call only; the caller's
+    other cuDNN settings are passed through unchanged."""
+    if not x.is_cuda:
+        return F.conv2d(x, w, stride=stride)
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     benchmark_limit=cudnn.benchmark_limit,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        return F.conv2d(x, w, stride=stride)
+
+
 def _int8_conv(
-    qx: torch.Tensor, w: QTensor, stride: int, pads: Pads, flags: Flags
+    qx: torch.Tensor,
+    w: QTensor,
+    stride: int,
+    pads: Pads,
+    flags: Flags,
+    pad_value: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """int8 NHWC conv via zero pre-pad + im2col + the int8 GEMM -> int32."""
+    """int8 NHWC conv via pre-pad (0, or the zero point) + im2col + the int8
+    GEMM -> int32."""
     kh, kw, _, co = w.values.shape
-    patches = _im2col(_pad_nhwc(qx, pads), kh, kw, stride)
+    patches = _im2col(_pad_nhwc(qx, pads, pad_value), kh, kw, stride)
     n, ho, wo, pc = patches.shape
     acc = int8_matmul(patches.reshape(n * ho * wo, pc), w, flags)
     return acc.reshape(n, ho, wo, co)
@@ -72,43 +118,55 @@ def conv2d(
     x: torch.Tensor,
     *,
     stride: int = 1,
-    padding: str = "SAME",
+    padding: Padding = "SAME",
     activation: Optional[str] = None,
+    out_quant: Optional[ActQuant] = None,
     flags: Flags = DEFAULT_FLAGS,
 ) -> torch.Tensor:
-    """Apply a conv layer {'w' (HWIO), optional 'b', optional 'aq'} to NHWC x."""
+    """Apply a conv layer {'w' (HWIO), optional 'b', 'aq', 'wsum'} to NHWC x.
+
+    padding: "SAME" (XLA's, asymmetric at stride 2), "VALID", or explicit
+    ((top, bottom), (left, right)), as the ResNet's `torch_pad` passes it.
+    """
     w = layer["w"]
     b = layer.get("b")
     kh, kw = w.shape[0], w.shape[1]
-    if padding == "SAME":
-        pads = _same_pads(x.shape[1], x.shape[2], kh, kw, stride)
-    elif padding == "VALID":
-        pads = ((0, 0), (0, 0))
-    else:
-        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    pads = _resolve_pads(padding, x.shape[1], x.shape[2], kh, kw, stride)
 
     if not isinstance(w, QTensor):
         cdtype = w.dtype if w.dtype == torch.bfloat16 else x.dtype
         xp = _pad_nhwc(x.to(cdtype), pads).permute(0, 3, 1, 2)
-        y = F.conv2d(xp, w.to(cdtype).permute(3, 2, 0, 1), stride=stride)
+        y = _conv_no_tf32(xp, w.to(cdtype).permute(3, 2, 0, 1), stride)
         y = y.permute(0, 2, 3, 1).float()
         if b is not None:
             y = y + b
-        return apply_act(y, activation)
+        return maybe_requantize(apply_act(y, activation), out_quant)
 
     aq = layer.get("aq")
-    if not isinstance(aq, DynamicActQuant):
-        raise NotImplementedError(
-            "only the dynamic-INT8 quantized conv is ported so far; got aq="
-            f"{type(aq).__name__}"
-        )
-    # Symmetric per-batch quant: the f32 zero is the int8 zero, so pad with 0.
-    qx, x_scale = dynamic_quantize(x, axis=None)
-    acc = _int8_conv(qx, w, stride, pads, flags)
-    y = acc.float() * (x_scale * w.scale)
-    if b is not None:
-        y = y + b
-    y = apply_act(y, activation)
-    if aq.handoff is not None:
-        y = y.to(aq.handoff_dtype)
-    return y
+    if isinstance(aq, DynamicActQuant):
+        # Symmetric per-batch quant: the f32 zero is the int8 zero, so pad with 0.
+        qx, x_scale = dynamic_quantize(x, axis=None)
+        acc = _int8_conv(qx, w, stride, pads, flags)
+        y = acc.float() * (x_scale * w.scale)
+        if b is not None:
+            y = y + b
+        y = apply_act(y, activation)
+        if aq.handoff is not None and out_quant is None:
+            y = y.to(aq.handoff_dtype)
+        return maybe_requantize(y, out_quant)
+
+    if isinstance(aq, ActQuant):
+        # int8 input is already in this layer's domain (its producer
+        # requantized into it); the f32 zero is the zero point, so pad with it.
+        qx = x if x.dtype == torch.int8 else quantize_affine(x, aq.scale, aq.zero_point)
+        acc = _int8_conv(qx, w, stride, pads, flags, aq.zero_point.to(torch.int8))
+        acc = acc - aq.zero_point * layer["wsum"]
+        y = acc.float() * (aq.scale * w.scale)
+        if b is not None:
+            y = y + b
+        return maybe_requantize(apply_act(y, activation), out_quant)
+
+    raise NotImplementedError(
+        "the weight-only quantized conv comes with a later slice; got aq="
+        f"{type(aq).__name__}"
+    )

@@ -1,7 +1,7 @@
 """Stateless layer helpers (counterpart of quantnet/ops/layers.py:19-97).
 
 Inference only: batchnorm with running statistics, BN folding, NHWC max
-pooling and dropout (the identity at inference). Training-mode batchnorm and
+pooling, global average pooling and dropout (the identity at inference). Training-mode batchnorm and
 dropout come with the trainer in a later slice.
 """
 from __future__ import annotations
@@ -57,6 +57,11 @@ def maxpool2d(x: torch.Tensor, window: int = 2, stride: int = 2) -> torch.Tensor
     ho, wo = h // window, w // window
     x = x[:, : ho * window, : wo * window, :]
     return x.reshape(n, ho, window, wo, window, c).amax(dim=(2, 4))
+
+
+def avgpool_global(x: torch.Tensor) -> torch.Tensor:
+    """Global average pool NHWC -> NC (layers.py:87-89)."""
+    return torch.mean(x, dim=(1, 2))
 
 
 def dropout(x: torch.Tensor, rate: float) -> torch.Tensor:

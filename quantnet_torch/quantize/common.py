@@ -1,6 +1,7 @@
 """Shared helpers of the quantization transforms (counterpart of
-quantnet/quantize/common.py:18-70, 154-205): layer walking, weight
-quantization and first / last layer resolution.
+quantnet/quantize/common.py:18-87, 154-205): layer walking, weight
+quantization, weight column sums, first / last layer resolution and the
+per-layer policy lookup.
 
 A "layer" is any dict in the params tree holding key 'w'; layers are
 addressed by path ('conv1', 'layer3/2/conv2').
@@ -8,7 +9,7 @@ addressed by path ('conv1', 'layer3/2/conv2').
 from __future__ import annotations
 
 import re
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -46,8 +47,22 @@ def layer_paths(params: dict, prefix: str = "") -> list:
 
 
 def quantize_weight(w: torch.Tensor, per_channel: bool) -> QTensor:
-    """Symmetric int8 weight quantization; channel axis = last (HWIO / KN)."""
-    return quantize_symmetric(w, axis=(w.ndim - 1) if per_channel else None)
+    """Symmetric int8 weight quantization; channel axis = last (HWIO / KN).
+
+    The JAX package quantizes weights inside its jitted transforms
+    (quantnet/quantize/dynamic.py:31-69, static.py:255-304), where XLA takes
+    `amax / 127` as a multiply by the f32 reciprocal; `quantize_symmetric`
+    does the same, so both bake the same bits.
+    """
+    axis = (w.ndim - 1) if per_channel else None
+    return quantize_symmetric(w, axis=axis)
+
+
+def weight_colsum(qw: QTensor) -> torch.Tensor:
+    """int32[O]: the per-output-channel sum of the int8 weight, the static
+    path's zero-point correction (x - zp) @ w = x @ w - zp * colsum(w)."""
+    v = qw.values.to(torch.int32)
+    return v.sum(dim=tuple(range(v.ndim - 1)), dtype=torch.int32)
 
 
 # Model-order anchors of the package's naming: stems first, classifier heads
@@ -85,3 +100,12 @@ def first_layer_path(params: dict) -> Optional[str]:
     """Path of the stem layer ('conv1' for SimpleConvNet)."""
     paths = layer_paths(params)
     return min(paths, key=_model_order_key) if paths else None
+
+
+def resolve_policy(path: str, default: str, policy: Optional[Dict[str, str]]) -> str:
+    """Most-specific match: the exact path, then the leaf name, else default."""
+    if not policy:
+        return default
+    if path in policy:
+        return policy[path]
+    return policy.get(path.rsplit("/", 1)[-1], default)

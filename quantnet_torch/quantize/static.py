@@ -1,0 +1,181 @@
+"""Static PTQ (counterpart of quantnet/quantize/static.py:39-304).
+
+Calibration runs the BN-folded model eagerly over the calibration batches
+with a `capture` dict, which records every quantizable layer's input; one
+observer per capture key turns them into frozen affine (scale, zero_point).
+The bake quantizes every weight to int8 (per output channel by default) and
+attaches to each layer its input's `ActQuant` under 'aq' and the weight's
+column sums under 'wsum'; with `pre_add_quant`, residual-branch outputs get an
+'oq' as well. The model's apply then runs int8 x int8 GEMMs and hands int8
+tensors from layer to layer.
+
+The JAX package bakes under jit; the port takes the same divisions as XLA
+does there (quantnet_torch/core/quantize.py), so both bake the same bits from
+the same folded params and activation statistics. W4A8 (`weight_bits=4`) and
+the cross-process observer merge come with later slices.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Iterable, Optional, Tuple
+
+import torch
+
+from quantnet_torch.core.observers import make_observer
+from quantnet_torch.core.types import ActQuant
+from quantnet_torch.quantize.common import (
+    first_layer_path,
+    last_layer_path,
+    quantize_weight,
+    resolve_policy,
+    walk_layers,
+    weight_colsum,
+)
+from quantnet_torch.quantize.fold import fold_model
+
+# apply_fn(params, state, x, capture=dict) -> (logits, state)
+ApplyFn = Callable
+QParams = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+
+
+@torch.no_grad()
+def calibrate(
+    apply_fn: ApplyFn,
+    params: dict,
+    state: dict,
+    batches: Iterable,
+    *,
+    observer: str = "minmax",
+    observer_kwargs: Optional[dict] = None,
+    include_output_stats: bool = False,
+) -> QParams:
+    """Run the calibration batches through the BN-folded model and return
+    {layer_path: (scale, zero_point)}. A batch is an image tensor or a tuple
+    whose first item is one. ':out' keys (pre-add residual statistics) are
+    observed only with include_output_stats."""
+    observer_kwargs = observer_kwargs or {}
+    obs: dict = {}
+    for batch in batches:
+        x = batch[0] if isinstance(batch, (tuple, list)) else batch
+        cap: dict = {}
+        apply_fn(params, state, x, capture=cap)
+        for key, value in cap.items():
+            if include_output_stats or ":out" not in key:
+                if key not in obs:
+                    obs[key] = make_observer(observer, **observer_kwargs)
+                obs[key].update(value)
+    if not obs:
+        raise ValueError("calibration saw no batch")
+    return {k: o.qparams() for k, o in obs.items()}
+
+
+def quantize(
+    params: dict,
+    state: dict,
+    apply_fn: ApplyFn,
+    calibration_batches: Iterable,
+    *,
+    observer: str = "minmax",
+    per_channel: bool = True,
+    skip_last_layer: bool = False,
+    skip_first_layer: bool = False,
+    pre_add_quant: bool = False,
+    layer_policy: Optional[dict] = None,
+    last_layer_name: Optional[str] = None,
+    weight_bits: int = 8,
+) -> Tuple[dict, dict]:
+    """FP32 (params, state) -> statically quantized (params', {}): fold,
+    calibrate, bake.
+
+    skip_first_layer keeps the stem in fp32; its output still hands int8 to
+    the next static layer. pre_add_quant quantizes the residual-branch
+    outputs before the add wherever the model captured ':out' statistics.
+    """
+    params, state = fold_model(params, state)
+    act_qparams = calibrate(
+        apply_fn, params, state, calibration_batches, observer=observer,
+        include_output_stats=pre_add_quant,
+    )
+    return bake(
+        params, state, act_qparams, per_channel=per_channel,
+        skip_last_layer=skip_last_layer, skip_first_layer=skip_first_layer,
+        pre_add_quant=pre_add_quant, layer_policy=layer_policy,
+        last_layer_name=last_layer_name, weight_bits=weight_bits,
+    )
+
+
+@torch.no_grad()
+def bake(
+    params: dict,
+    state: dict,
+    act_qparams: QParams,
+    *,
+    per_channel: bool = True,
+    skip_last_layer: bool = False,
+    skip_first_layer: bool = False,
+    pre_add_quant: bool = False,
+    layer_policy: Optional[dict] = None,
+    last_layer_name: Optional[str] = None,
+    weight_bits: int = 8,
+) -> Tuple[dict, dict]:
+    """Bake the static tree from calibrated activation qparams. `params` must
+    be BN-folded: the tree calibrate() saw. An explicit `layer_policy` entry
+    (exact path or leaf name) wins over the skip flags; 'fp32' keeps a layer
+    in fp32."""
+    if weight_bits == 4:
+        raise NotImplementedError("W4A8 (weight_bits=4) comes with a later slice")
+    if weight_bits != 8:
+        raise ValueError(f"weight_bits must be 8 or 4, got {weight_bits}")
+    last = last_layer_name or last_layer_path(params)
+    first = first_layer_path(params)
+
+    def q(path: str, layer: dict) -> dict:
+        action = resolve_policy(path, "static", layer_policy)
+        explicit = bool(layer_policy) and (
+            path in layer_policy or path.rsplit("/", 1)[-1] in layer_policy
+        )
+        skipped = (skip_last_layer and path == last) or (skip_first_layer and path == first)
+        if action == "fp32" or (not explicit and skipped):
+            return dict(layer)
+        out = dict(layer)
+        qw = quantize_weight(layer["w"], per_channel)
+        qw.nk()  # the GEMM kernels' [N, K] operand, made once here
+        out["w"] = qw
+        scale, zp = act_qparams[path]
+        out["aq"] = ActQuant(scale=scale, zero_point=zp)
+        out["wsum"] = weight_colsum(qw)
+        if pre_add_quant and f"{path}:out" in act_qparams:
+            oscale, ozp = act_qparams[f"{path}:out"]
+            out["oq"] = ActQuant(scale=oscale, zero_point=ozp)
+        return out
+
+    qparams = walk_layers(params, q)
+    _validate_sibling_domains(qparams)
+    return qparams, state
+
+
+def _validate_sibling_domains(qparams: dict) -> None:
+    """A block whose conv1 and downsample are both static must give them the
+    same input domain: the ResNet's downsample then takes the block's raw
+    int8 input, which lies in conv1's domain (quantnet/models/resnet.py:383-397).
+    Trees calibrated here always hold it (both observers saw one tensor)."""
+
+    def walk(node):
+        if not isinstance(node, dict):
+            return
+        c1, ds = node.get("conv1"), node.get("downsample")
+        if (
+            isinstance(c1, dict) and isinstance(ds, dict)
+            and isinstance(c1.get("aq"), ActQuant) and isinstance(ds.get("aq"), ActQuant)
+        ):
+            a, b = c1["aq"], ds["aq"]
+            if not (torch.equal(a.scale, b.scale) and torch.equal(a.zero_point, b.zero_point)):
+                raise ValueError(
+                    "static PTQ invariant violated: downsample input ActQuant differs from "
+                    "conv1's within one block; the raw-int8 downsample handoff requires "
+                    "identical domains"
+                )
+        for v in node.values():
+            if isinstance(v, dict) and "w" not in v:
+                walk(v)
+
+    walk(qparams)

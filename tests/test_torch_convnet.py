@@ -20,6 +20,7 @@ from quantnet_torch.bench.benchmark import InferenceBenchmark
 from quantnet_torch.core.config import Flags
 from quantnet_torch.entry import entry
 from quantnet_torch.models import convnet as tconvnet
+from quantnet_torch.ops import linear as tlinear
 from quantnet_torch.ops.conv import conv2d as tconv2d
 from quantnet_torch.ops.layers import maxpool2d as tmaxpool2d
 from quantnet_torch.quantize import common as tcommon
@@ -108,22 +109,25 @@ def test_whole_model_pallas_path(monkeypatch, model):
     """JAX with `int8_matmul_backend="pallas"`, `int8_conv_backend="im2col"`
     (both kernels in interpret mode) against the port's kernel path.
 
-    conv1-conv6: the same bits. Logits: JAX feeds fc1's fused kernel the bf16
-    handoff and so takes its block scales in bf16; the port upcasts to f32 (the
-    kernel's contract). That moves fc1's quantized input by about one int8 step
-    in places, measured at under 1% of max|logit|; the bound is 2%. Fed the
-    same f32 input, the JAX fc path agrees with the port to float order."""
+    conv1-conv6: the same bits. Logits: both feed fc1's fused kernel the bf16
+    handoff of conv6, and the port takes the block scales and quotients on
+    bf16 values as XLA does in the Pallas body; the rest is float order
+    (measured at most 9.5e-7 at max|logit| 8.6 over three inputs; the bound
+    was 2% of max|logit| while the port upcast fc1's input to f32). Fed the
+    same f32 input, the two fc paths agree to float order as well."""
     ref, captured = _jax_forward(monkeypatch, model, "pallas", "im2col")
     _port_conv_chain_matches(model, captured, Flags())
     got, _ = tconvnet.apply(model["tq"], {}, torch.from_numpy(model["x"]))
     assert got.shape == (BATCH, 10) and got.dtype == torch.float32
-    scale = np.abs(ref).max()
-    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=0.02 * scale)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
 
+    fc_in = np.asarray(captured["fc1"].astype(jnp.float32))
     with pltpu.force_tpu_interpret_mode():
-        h = jlinear.linear(model["jq"]["fc1"], captured["fc1"].astype(jnp.float32), activation="relu")
+        h = jlinear.linear(model["jq"]["fc1"], jnp.asarray(fc_in), activation="relu")
         ref_f32 = np.asarray(jlinear.linear(model["jq"]["fc2"], h))
-    np.testing.assert_allclose(got.numpy(), ref_f32, rtol=1e-5, atol=1e-4)
+    got_f32 = tlinear.linear(model["tq"]["fc1"], torch.from_numpy(fc_in), activation="relu")
+    got_f32 = tlinear.linear(model["tq"]["fc2"], got_f32)
+    np.testing.assert_allclose(got_f32.numpy(), ref_f32, rtol=1e-5, atol=1e-4)
 
 
 def test_whole_model_unfused_path_matches_xla(monkeypatch, model):
@@ -154,19 +158,19 @@ def test_interop_round_trip():
     """JAX params -> numpy -> port -> forward, against the port's own quantize
     of the same fp32 params carried over.
 
-    The JAX package runs eagerly here: under jit, XLA turns `amax / 127` into
-    a multiply by the reciprocal, one ulp off true division in some channels.
-    Folded by the JAX package, the two trees then hold the same bits and give
-    the same logits. Folded by the port, XLA's and PyTorch's rsqrt part in the
-    last place; an ulp in a weight can tip a bf16 handoff value, which can
-    move a per-tensor activation scale and with it a whole layer's int8 grid:
+    The JAX package quantizes under jit, where XLA turns `amax / 127` into a
+    multiply by the f32 reciprocal, and the port's weight quantization does
+    the same (quantnet_torch/quantize/common.py::quantize_weight). Folded by
+    the JAX package, the two trees then hold the same bits and give the same
+    logits. Folded by the port, XLA's and PyTorch's rsqrt part in the last
+    place; an ulp in a weight can tip a bf16 handoff value, which can move a
+    per-tensor activation scale and with it a whole layer's int8 grid:
     measured 1.5% of max|logit| at this seed, bound 5%."""
     from quantnet.quantize import fold as jfold
 
     params, state = jconvnet.init(jax.random.PRNGKey(0), image_size=IMAGE)
-    with jax.disable_jit():
-        jq, _ = jdynamic.quantize(params, state)
-        folded, _ = jfold.fold_model(params, state)
+    jq, _ = jdynamic.quantize(params, state)
+    folded, _ = jfold.fold_model_jit(params, state)
     carried = interop.from_jax_qparams(jax.tree.map(np.asarray, jq), device="cpu")
     x = torch.from_numpy(
         np.random.default_rng(2).standard_normal((BATCH, IMAGE, IMAGE, 3)).astype(np.float32)

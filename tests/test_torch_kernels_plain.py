@@ -165,3 +165,30 @@ def test_every_kernel_has_a_source_and_signature():
         assert "cudaGetLastError()" in src
         assert "use_fast_math" not in " ".join(_build.NVCC_FLAGS)
         assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+# fc1's depth (K = 4096, 8 K-blocks) cut to a few rows, and two smaller ones.
+BF16_SHAPES = [(8, 4096, 512), (7, 600, 10), (32, 256, 128)]
+
+
+@pytest.mark.parametrize("m,k,n", BF16_SHAPES)
+def test_fused_dynamic_gemm_plain_matches_pallas_on_bf16(m, k, n):
+    """bf16 x, as the dynamic model feeds fc1: the port rounds where XLA
+    rounds in the Pallas body (quantnet_torch/ops/fused_dynamic_matmul.py),
+    and agrees with the interpret-mode original to float order (measured
+    1.5e-5 at |y| ~ 30 at fc1's shape, from two FMA contractions XLA makes).
+    Upcasting x to f32 first, as the port once did, misses by ~1."""
+    x, qw, ws, bias = _fused_operands(m, k, n, 7 * m + k)
+    x[:, ::7] = np.abs(x[:, ::7]) * 3
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(
+            dynamic_int8_matmul_fused(xb, jnp.asarray(qw), jnp.asarray(ws), jnp.asarray(bias))
+        )
+    tx = torch.from_numpy(np.asarray(xb.astype(jnp.float32))).bfloat16()
+    args = (torch.from_numpy(qw).t().contiguous(), torch.from_numpy(ws), torch.from_numpy(bias))
+    got = fused_dynamic_gemm(tx, *args)
+    np.testing.assert_allclose(got.numpy(), ref, atol=FUSED_ATOL, rtol=FUSED_RTOL)
+    if k == 4096:
+        upcast = fused_dynamic_gemm(tx.float(), *args)
+        assert np.abs(upcast.numpy() - ref).max() > 100 * FUSED_ATOL

@@ -2,6 +2,7 @@
 
 Inputs are made with numpy from a seed and go through both packages.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -45,8 +46,10 @@ def test_dynamic_quantize_per_row_bit_exact(shape, dtype):
 
 @pytest.mark.parametrize("shape,axis", [((3, 3, 16, 32), 3), ((256, 10), 1), ((64, 48), None)])
 def test_quantize_symmetric_bit_exact(shape, axis):
+    """Against the JAX function under jit, as the JAX package's weight bakes
+    run it: XLA takes amax / 127 as a multiply by f32(1 / 127)."""
     w = _x(shape, 2, scale=0.05)
-    jqt = jq.quantize_symmetric(jnp.asarray(w), axis=axis)
+    jqt = jax.jit(jq.quantize_symmetric, static_argnames="axis")(jnp.asarray(w), axis=axis)
     tqt = tq.quantize_symmetric(torch.from_numpy(w), axis=axis)
     np.testing.assert_array_equal(tqt.values.numpy(), np.asarray(jqt.values))
     np.testing.assert_array_equal(tqt.scale.numpy(), np.asarray(jqt.scale))
