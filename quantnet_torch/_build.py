@@ -32,11 +32,14 @@ NVCC_FLAGS = (
 )
 NVCC_TIMEOUT_S = 600
 
-_P, _I64, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+_P, _I64, _C, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 # C signature of each library's entry point: (function, argtypes).
 SIGNATURES = {
-    # int8_gemm_nt(a[M,K] s8, b[N,K] s8, c[M,N] s32, M, N, K, stream)
-    "int8_gemm": ("int8_gemm_nt", [_P, _P, _P, _I64, _I64, _I64, _P]),
+    # int8_gemm(a[M,K] s8, b[N,K] s8, c[M,ldc], M, N, K, ldc, store, cs[N],
+    #           rs[M], bias[N], zpw[N], relu, out_scale, out_zero_point, stream)
+    "int8_gemm": (
+        "int8_gemm", [_P, _P, _P, _I64, _I64, _I64, _I64, _C, _P, _P, _P, _P, _C, _F, _F, _P],
+    ),
     # fused_dynamic_gemm(x[M,K] f32 or bf16, w[N,K] s8, w_scale[N], bias[N],
     #                    out[M,N] f32, M, N, K, block_k, x_is_bf16, stream)
     "fused_dynamic_gemm": (
@@ -121,6 +124,17 @@ def kernel(name: str):
     if name not in _libs:
         build([name])
     return getattr(_libs[name], SIGNATURES[name][0])
+
+
+def function(name: str, fn_name: str, argtypes):
+    """Another C entry point of a kernel's library (a query or a test
+    kernel beside the main one), typed, building the library at first use."""
+    if name not in _libs:
+        build([name])
+    fn = getattr(_libs[name], fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def check(err: int, name: str) -> None:

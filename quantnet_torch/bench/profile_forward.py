@@ -8,8 +8,9 @@ resnet50 the static-INT8 ResNet-50 at 224x224 as quantnet_torch.entry.
 resnet_entry builds it (fp32 stem, min-max calibration on 32 images).
 
 Traces five forwards after warm-up with torch.profiler (CPU and CUDA
-activity) and prints device time by kernel name, the device's busy share of
-the traced wall time, and the card's name and power limit. Needs a card.
+activity) and prints the device time of every kernel by name, the device's
+busy share of the traced wall time, and the card's name and power limit.
+Needs a card.
 """
 from __future__ import annotations
 
@@ -20,7 +21,6 @@ import time
 import torch
 
 ITERS = 5
-TOP = 20
 
 
 def main(argv=None) -> int:
@@ -69,7 +69,7 @@ def main(argv=None) -> int:
     if not rows:
         print("the profiler recorded no device time")
         return 1
-    for e in rows[: TOP]:
+    for e in rows:
         ms = e.self_device_time_total / 1e3 / ITERS
         print(f"  {ms:9.4f} ms {100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}% "
               f"x{e.count // ITERS:<3d} {e.key[:100]}")

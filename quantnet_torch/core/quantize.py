@@ -11,18 +11,20 @@ CUDA division turns `tensor / python_number` into a multiply by the
 reciprocal, which can be an ulp off true division, so every divisor here is a
 tensor (`_div`).
 
-The exceptions copy the JAX package's jitted transforms. Inside jit, XLA
-rewrites a division by a compile-time constant into a multiply by the
-constant's f32 reciprocal: `amax / 127` in the jitted weight bakes
-(quantnet/quantize/dynamic.py:31-69, static.py:255-304) and `/ 255` in
-`affine_qparams` under calibration's jitted extraction (static.py:100).
-`quantize_symmetric` (weights only) and `affine_qparams` (calibration only)
-always compute those the same way, so a tree baked by the port holds the
-same bits as one baked by the JAX package; `symmetric_scale` serves both the
-eager activation path and the weight bake, and takes `reciprocal` to choose.
+The exceptions copy the JAX package's jitted forward and transforms. Every
+real JAX path runs under jit (the bench, the evaluator, serving, the weight
+bakes, calibration's extraction), and there XLA rewrites a division by a
+compile-time constant into a multiply by the constant's f32 reciprocal:
+`amax / 127` in `symmetric_scale` (the runtime activation scale of
+`dynamic_quantize` and the weight bakes, quantnet/quantize/dynamic.py:31-69,
+static.py:255-304) and `/ 255` in `affine_qparams` (static.py:100). The port
+always computes those as `* f32(1 / c)`, so its activation scales and baked
+trees hold the same bits as the jitted JAX package's (eager JAX divides, and
+differs from both in about 5% of per-row scales).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -42,10 +44,17 @@ def _div(x: torch.Tensor, d) -> torch.Tensor:
     return x / d
 
 
+@functools.lru_cache(maxsize=None)
+def _f32_reciprocal(c: float) -> float:
+    """f32(1 / c), as a Python float (exactly that f32 value)."""
+    return (torch.tensor(1.0, dtype=torch.float32) / torch.tensor(c, dtype=torch.float32)).item()
+
+
 def _mul_reciprocal(x: torch.Tensor, c: float) -> torch.Tensor:
-    """x * f32(1 / c): x / c as XLA computes it under jit."""
-    inv = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(c, dtype=torch.float32)
-    return x * inv.to(x.device)
+    """x * f32(1 / c): x / c as XLA computes it under jit. The reciprocal goes
+    in as a Python number, which an f32 product takes as that f32 value, so
+    no call copies a constant to the card."""
+    return x * _f32_reciprocal(c)
 
 
 def _reduce_dims(ndim: int, axis: Optional[int]) -> Tuple[int, ...]:
@@ -60,22 +69,20 @@ def sym_max(bits: int) -> float:
     return float(2 ** (bits - 1) - 1)
 
 
-def symmetric_scale(
-    x: torch.Tensor, axis: Optional[int] = None, bits: int = 8, *, reciprocal: bool = False
-) -> torch.Tensor:
-    """absmax / sym_max(bits); () per-tensor, or keepdim-shaped per-channel."""
+def symmetric_scale(x: torch.Tensor, axis: Optional[int] = None, bits: int = 8) -> torch.Tensor:
+    """absmax * f32(1 / sym_max(bits)), as XLA computes absmax / sym_max under
+    jit; () per-tensor, or keepdim-shaped per-channel."""
     dims = _reduce_dims(x.ndim, axis)
     amax = torch.amax(torch.abs(x), dim=dims, keepdim=axis is not None)
     # The floor is taken in x's dtype, as the JAX package does for bf16 input.
     amax = torch.clamp_min(amax, EPS).float()
-    return _mul_reciprocal(amax, sym_max(bits)) if reciprocal else _div(amax, sym_max(bits))
+    return _mul_reciprocal(amax, sym_max(bits))
 
 
 def quantize_symmetric(x: torch.Tensor, axis: Optional[int] = None, bits: int = 8) -> QTensor:
-    """Symmetric quantization (weights); per-channel along `axis` if given.
-    The scale is `amax * f32(1 / sym_max)`, as XLA computes the jitted bakes."""
+    """Symmetric quantization (weights); per-channel along `axis` if given."""
     m = sym_max(bits)
-    scale = symmetric_scale(x, axis, bits, reciprocal=True)
+    scale = symmetric_scale(x, axis, bits)
     q = torch.clamp(torch.round(x.float() / scale), -m, m)
     return QTensor(values=q.to(torch.int8), scale=scale, axis=axis, bits=bits)
 
@@ -106,6 +113,7 @@ def dynamic_quantize(
     """Per-batch symmetric activation quantization: (int8 values, f32 scale).
 
     Convs take a per-tensor scale (axis=None), linears a per-row one (axis=0).
+    The scale is the jitted JAX forward's (`symmetric_scale`).
     """
     scale = symmetric_scale(x, axis)
     q = torch.clamp(torch.round(x.float() / scale), -SYM_MAX, SYM_MAX)

@@ -6,7 +6,7 @@
 // _fused_dynamic_kernel) and keeps its arithmetic: K is cut into blocks of
 // block_k = min(512, round_up(K, 128)) columns, zero-padded past K. For every
 // (row, K-block):
-//     s    = max(absmax(x_block), 1e-8) / 127            (IEEE division)
+//     s    = max(absmax(x_block), 1e-8) * f32(1 / 127)   (as XLA jits / 127)
 //     q    = clip(round_half_even(x_block / s), -127, 127)
 //     acc += float(q @ W_block) * s                       (f32, K-block order)
 // then out = acc * w_scale + bias. No --use_fast_math, and __fmul_rn /
@@ -113,7 +113,8 @@ __global__ void __launch_bounds__(THREADS) fused_dynamic_gemm_kernel(
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
       constexpr bool BF16 = sizeof(T) == 2;
-      const float s = fmaxf(amax, BF16 ? round_bf16(1e-8f) : 1e-8f) / 127.0f;
+      // amax / 127 as the jitted Pallas body computes it: * f32(1 / 127).
+      const float s = __fmul_rn(fmaxf(amax, BF16 ? round_bf16(1e-8f) : 1e-8f), 1.0f / 127.0f);
       const float sq = BF16 ? round_bf16(s) : s;  // the divisor of the quotient
 #pragma unroll
       for (int j = 0; j < KB_MAX / 128; ++j) {

@@ -1,76 +1,690 @@
-// int8 GEMM with int32 accumulation: C[M,N] = A[M,K] @ B[N,K]^T, exact.
+// int8 GEMM on Hopper: C[M,N] = A[M,K] @ B[N,K]^T with int32 accumulation,
+// exact, and an optional epilogue fused into the one store.
 //
 // Replaces the TPU kernel quantnet/ops/pallas_matmul.py:int8_matmul_pallas
-// (body _matmul_kernel). On the main path it carries all six convs of the
-// SimpleConvNet through im2col (quantnet_torch/ops/conv.py), so its shapes
-// at bs1024 are M x K x N = 1048576x27x64, 1048576x576x64, 262144x576x128,
-// 262144x1152x128, 65536x1152x256 and 65536x2304x256.
+// (body _matmul_kernel). It carries every int8 conv (through im2col) and
+// every int8 linear of the port: the convnet's six convs at bs1024
+// (M x K x N = 1048576x32x64 after conv1's K = 27 is zero-padded,
+// 1048576x576x64, 262144x576x128, 262144x1152x128, 65536x1152x256,
+// 65536x2304x256) and ResNet-50's 52 convs and fc at bs128 (20 shapes).
 //
-// Bound on an H100 SXM (3.35 TB/s, 1979 int8 TOP/s): every one of those six
-// GEMMs is memory-bound, since K and N are small against M. Reading A and B
-// once and writing the int32 C once moves about 2.25 GB in all, about
-// 0.67 ms; the operations alone would take about 0.1 ms.
+// What bounds it on an H100 SXM (3.35 TB/s, 1979 int8 TOP/s): K and N are
+// small against M, so all but one shape are bound by bytes: reading A once
+// and writing C once is most of the work. The exception is ResNet-50's
+// 6272x4608x512, bound by operations. So the design streams A from HBM once
+// and keeps the tensor cores fed from shared memory:
 //
-// Design: one block of 8 warps computes a 128 x 64 output tile; the K loop
-// stages 128x64 A and 64x64 B tiles through shared memory and each warp runs
-// mma.sync m16n8k32 on its 32 x 32 sub-tile. Ragged M, N and K are masked to
-// zero on load (conv1 has K = 27) and masked on store. Kept simple and
-// exact; making it fast (wgmma, TMA, a pipelined K loop, im2col fused into
-// the A load) is left to later work.
-#include "mma_s8.cuh"
+//   * Output tile BM x BN = 128 x (64, 128 or 256): BN covers all of N up to
+//     256, so A is read once; for N > 256 the tiles of one M block are
+//     consecutive in the schedule, so the blocks running side by side share
+//     that A tile through L2 (as do the 128-wide tiles taken for the int8
+//     store and where 256-wide ones would leave most of the last wave of SMs
+//     idle).
+//   * A persistent grid (one block per SM) walks the tiles. Warpgroup 0 is
+//     the producer: one thread issues TMA loads (cp.async.bulk.tensor,
+//     128-byte swizzle, 128 bytes of K per stage) into a ring of 4-8 stages,
+//     tracked by mbarriers in both directions (full: the bytes arrived;
+//     empty: both consumers are done with the stage). It runs ahead across
+//     tile boundaries, so loads overlap the consumers' epilogue.
+//   * Warpgroups 1 and 2 are the consumers, 64 rows each: wgmma.mma_async
+//     m64nBNk32 .s32.s8.s8 with both operands K-major in shared memory (the
+//     only layout wgmma takes for s8), four per stage.
+//   * TMA fills rows and columns past M, N and K with zeros, exact for an
+//     integer product, and the TMA store skips them. K must be a multiple of
+//     16 and C's rows a multiple of 16 bytes (TMA's row strides): the wrapper
+//     zero-pads K and may give C a wider row than N.
+//
+// The epilogue (a template parameter, STORE) reads the accumulators out of
+// the wgmma fragments and applies, in this order and in IEEE f32 without
+// contraction (__fmul_rn / __fadd_rn / __fdiv_rn, no fast math):
+//     acc - zpw[n]                      int32, static layers (zp * colsum)
+//     y = float(acc) * s                 s = cs[n], or rs[m] * cs[n]
+//     y = y + bias[n]                    if a bias
+//     y = relu(y)                        if asked (+0 for -0, as torch.relu)
+// then one store: int32 (no epilogue; the TPU kernel's own function), f32,
+// bf16 (round to nearest even), or int8 = clamp(rint(y / out_s) + out_zp,
+// -128, 127) with the zero point added in f32, as quantize_affine does. Each
+// 128-byte column chunk of a consumer's 64 rows goes through a swizzled
+// staging buffer in shared memory and out by one TMA store (full lines),
+// double-buffered, so the stores drain while the next tile is computed.
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "wgmma_s8.cuh"
 
 namespace {
 
-constexpr int BM = 128, BN = 64, THREADS = 256;
+constexpr int BM = 128;           // rows of an output tile: two consumer warpgroups
+constexpr int BK = 128;           // K bytes per stage: one 128-byte swizzle row
+constexpr int THREADS = 384;      // producer warpgroup + two consumer warpgroups
+constexpr int CONSUMERS = 256;
+constexpr int MAX_STAGES = 8;
+constexpr int ALIGN = 1024;       // the 128-byte swizzle repeats every 8 rows
 
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS)
-    int8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
-                     int32_t* __restrict__ C, long long M, long long N, long long K) {
-  __shared__ __align__(16) int8_t sA[BM * qt::SROW];
-  __shared__ __align__(16) int8_t sB[BN * qt::SROW];
-  const long long m0 = (long long)blockIdx.x * BM, n0 = (long long)blockIdx.y * BN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp & 3, wn = warp >> 2;  // 4 x 2 warps of 32 x 32
+enum Store { STORE_INT32 = 0, STORE_F32 = 1, STORE_BF16 = 2, STORE_INT8 = 3 };
 
-  int acc[2][4][4] = {};
-  for (long long k0 = 0; k0 < K; k0 += qt::BK) {
-    qt::load_tile_s8<BM, THREADS, VEC>(sA, A, M, K, m0, k0);
-    qt::load_tile_s8<BN, THREADS, VEC>(sB, B, N, K, n0, k0);
-    __syncthreads();
-    qt::warp_mma_bk<2, 4, qt::SROW, qt::SROW>(acc, sA + wm * 32 * qt::SROW,
-                                              sB + wn * 32 * qt::SROW, lane);
-    __syncthreads();
+struct Epilogue {
+  const float* cs;      // [N] per-column scale
+  const float* rs;      // [M] per-row scale, or null
+  const float* bias;    // [N] or null
+  const int32_t* zpw;   // [N] or null
+  int relu;
+  float out_s, out_zp;  // the int8 store's domain
+  float out_r;          // RN(1 / out_s), made on the host
+  int div_fast;         // out_s lies where fast_div is exact (see there)
+};
+
+template <int STORE>
+struct StoreTraits {
+  static constexpr int BYTES = STORE == STORE_INT8 ? 1 : STORE == STORE_BF16 ? 2 : 4;
+};
+
+// Shared memory of one block: the ring, then each consumer's staging buffers
+// for the TMA store, then the barriers.
+template <int BN>
+struct Smem {
+  static constexpr int A_BYTES = BM * BK;
+  static constexpr int STAGE_BYTES = A_BYTES + BN * BK;
+  static constexpr int OUT_BUF = 64 * 128;  // 64 rows x one 128-byte swizzle row
+  // Staging buffers of a consumer (TMA stores in flight): two at BN = 256,
+  // where more would cost a stage of the ring.
+  static constexpr int OUT_BUFS = BN == 256 ? 2 : 4;
+  static constexpr int STAGING = 2 * OUT_BUFS * OUT_BUF;
+  static constexpr int BARRIERS = 2 * MAX_STAGES * 8;
+  static size_t bytes(int stages) { return ALIGN + (size_t)stages * STAGE_BYTES + STAGING + BARRIERS; }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Waits for the phase of `parity` to complete.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// L2 policies: C is written once (evict first); B is read again by every
+// tile, and A by the tiles of its other column blocks (evict last). A's loads
+// are kept too where it is read once: each 128-byte row of a stage is
+// promoted to a 256-byte L2 fetch, whose second half is the next stage's, and
+// evict-first dropped it before that stage came (on an H100, ResNet-50's
+// int32 GEMMs took 4% longer per forward with A evict-first).
+__device__ __forceinline__ uint64_t l2_policy_evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint64_t l2_policy_evict_last() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+
+// One TMA tile load: box at (c0 along K, c1 along rows) -> dst, completing
+// its bytes on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1, {%3, %4}], [%2], %5;" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "l"(policy)
+      : "memory");
+}
+
+// One TMA tile store: the 64-row box at (c0 along N, c1 along M) <- src.
+// Rows and columns past the tensor's edge are not written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0, int c1,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0, {%2, %3}], [%1], %4;" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "l"(policy)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Waits until at most N of this thread's TMA stores still read shared memory.
+template <int N>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
+// rows of 128 bytes, 8-row groups 1024 bytes apart (stride byte offset), the
+// leading byte offset unused by a swizzled K-major layout.
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(16 >> 4) << 16) | (uint64_t(1024 >> 4) << 32) |
+         (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// Waits until at most N of this warpgroup's wgmma groups are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving reads or writes of an accumulator register
+// across the asynchronous wgmma region.
+__device__ __forceinline__ void fence_reg(int& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
+}
+
+// Chunk geometry of a store: a chunk is one 128-byte row of the staging
+// buffer, CW columns; a tile of BN columns has CHUNKS of them (BN = 64 with
+// int8: one chunk, half of it past N, not stored), each JC 8-column fragment
+// blocks wide.
+template <int BN, int STORE>
+struct Chunks {
+  static constexpr int CW = 128 / StoreTraits<STORE>::BYTES;
+  static constexpr int CHUNKS = BN >= CW ? BN / CW : 1;
+  static constexpr int JC = (BN >= CW ? CW : BN) / 8;
+  static constexpr int PV = JC / 4;  // per-column values a lane holds per vector
+};
+
+// One chunk's per-column vectors, spread over a warp: lane l holds column
+// base + 32 i + l of cs, bias and zpw (zeros past N or where the epilogue
+// has none). Read coalesced, one chunk ahead of their use (the first before
+// the tile's products), so their latency is hidden; a thread takes its own
+// columns by shuffle.
+template <int PV>
+struct ChunkCols {
+  float cs[PV], bias[PV];
+  int zpw[PV];
+};
+
+template <int PV>
+__device__ __forceinline__ void load_cols(ChunkCols<PV>& v, const Epilogue& e, int base, int N,
+                                          int lane) {
+#pragma unroll
+  for (int i = 0; i < PV; ++i) {
+    const int c = base + 32 * i + lane;
+    const bool in = c < N;
+    v.cs[i] = in ? __ldg(e.cs + c) : 0.0f;
+    v.bias[i] = in && e.bias ? __ldg(e.bias + c) : 0.0f;
+    v.zpw[i] = in && e.zpw ? __ldg(e.zpw + c) : 0;
+  }
+}
+
+// The f32 epilogue of one accumulator, given its column's zpw, cs and bias
+// and its row's rs (each used only where the epilogue has it).
+__device__ __forceinline__ float epilogue_value(int acc, int zpw, float cs, float rs, float bias,
+                                                const Epilogue& e) {
+  if (e.zpw) acc -= zpw;
+  const float s = e.rs ? __fmul_rn(rs, cs) : cs;
+  float y = __fmul_rn(__int2float_rn(acc), s);
+  if (e.bias) y = __fadd_rn(y, bias);
+  if (e.relu) y = y <= 0.0f ? 0.0f : y;  // relu(-0) = +0; NaN passes, as torch.relu
+  return y;
+}
+
+// y / s rounded to nearest even, the bits of __fdiv_rn(y, s), in five
+// branch-free operations from r = RN(1 / s): q0 = RN(y r); then twice
+// q' = RN(q + (y - s q) r), the remainder exact by FMA. q0 is within 2 ulp of
+// y / s, the first step brings it within 1 ulp (faithful), and the second is
+// Markstein's theorem: r within half an ulp of 1 / s and q faithful give
+// RN(q + r (y - s q)) = RN(y / s). That holds while nothing over- or
+// underflows; `slow` is set where y or q0 leave [2^-90, 2^90] (y = 0 gives 0,
+// exact), and the caller then takes __fdiv_rn (s is checked on the host).
+// __fdiv_rn branches to its slow path per element, which keeps the compiler
+// from overlapping the divisions of a chunk: on an H100 the int8 store took
+// about three times as long with it.
+__device__ __forceinline__ float fast_div(float y, float s, float r, bool& slow) {
+  const float q0 = __fmul_rn(y, r);
+  const float q1 = __fmaf_rn(__fmaf_rn(-s, q0, y), r, q0);
+  const float q2 = __fmaf_rn(__fmaf_rn(-s, q1, y), r, q1);
+  const float ay = fabsf(y), aq = fabsf(q0);
+  slow |= !(y == 0.0f || (ay >= 0x1p-90f && ay <= 0x1p90f && aq >= 0x1p-90f && aq <= 0x1p90f));
+  return q2;
+}
+
+// The int8 requantize: clamp(rint(y / out_s) + out_zp, -128, 127), the zero
+// point added in f32 after rounding, as quantize_affine does.
+template <bool FAST>
+__device__ __forceinline__ int8_t requantize(float y, const Epilogue& e, bool& slow) {
+  if (FAST && !e.div_fast) slow = true;
+  const float d = FAST ? fast_div(y, e.out_s, e.out_r, slow) : __fdiv_rn(y, e.out_s);
+  const float q = __fadd_rn(rintf(d), e.out_zp);
+  return static_cast<int8_t>(__float2int_rn(fminf(fmaxf(q, -128.0f), 127.0f)));
+}
+
+// The fragments of chunk q of a consumer's tile, through the epilogue, into
+// the staging buffer in the 128-byte swizzle. FAST: the int8 store divides
+// with fast_div and reports in `slow` where it may not be exact.
+template <int BN, int STORE, bool FAST>
+__device__ __forceinline__ void write_chunk(const int (&acc)[BN / 2], int q, int M, int N, int row0,
+                                            int n0, const Epilogue& e,
+                                            const ChunkCols<Chunks<BN, STORE>::PV>& cols,
+                                            const float (&rs)[2], uint8_t* buf, int tid,
+                                            bool& slow) {
+  using C = Chunks<BN, STORE>;
+  constexpr int ESZ = StoreTraits<STORE>::BYTES;
+  const int rq = (tid >> 5) * 16 + ((tid & 31) >> 2);  // fragment row of r = 0, 1
+  const int cq = 2 * (tid & 3);                        // fragment column offset
+#pragma unroll
+  for (int jj = 0; jj < C::JC; ++jj) {
+    const int j = q * C::JC + jj;
+    const int col = n0 + 8 * j + cq;
+    float2 cs = make_float2(0.0f, 0.0f), bias = cs;
+    int2 zpw = make_int2(0, 0);
+    if constexpr (STORE != STORE_INT32) {
+      const int i = jj / 4, lane = 8 * (jj % 4) + cq;  // who holds columns col, col + 1
+      cs = make_float2(__shfl_sync(~0u, cols.cs[i], lane), __shfl_sync(~0u, cols.cs[i], lane + 1));
+      if (e.bias)
+        bias = make_float2(__shfl_sync(~0u, cols.bias[i], lane),
+                           __shfl_sync(~0u, cols.bias[i], lane + 1));
+      if (e.zpw)
+        zpw = make_int2(__shfl_sync(~0u, cols.zpw[i], lane), __shfl_sync(~0u, cols.zpw[i], lane + 1));
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = rq + 8 * h;
+      const int row = row0 + r;
+      const int b = (8 * jj + cq) * ESZ;  // byte column in the chunk
+      uint8_t* dst = buf + r * 128 + ((((b >> 4) ^ (r & 7))) << 4) + (b & 15);
+      const int a0 = acc[4 * j + 2 * h], a1 = acc[4 * j + 2 * h + 1];
+      if constexpr (STORE == STORE_INT32) {
+        *reinterpret_cast<int2*>(dst) = make_int2(a0, a1);
+      } else {
+        float y0 = 0.0f, y1 = 0.0f;  // past M or N: not stored
+        if (row < M) {
+          if (col < N) y0 = epilogue_value(a0, zpw.x, cs.x, rs[h], bias.x, e);
+          if (col + 1 < N) y1 = epilogue_value(a1, zpw.y, cs.y, rs[h], bias.y, e);
+        }
+        if constexpr (STORE == STORE_F32) {
+          *reinterpret_cast<float2*>(dst) = make_float2(y0, y1);
+        } else if constexpr (STORE == STORE_BF16) {
+          __nv_bfloat162 v;
+          v.x = __float2bfloat16_rn(y0);
+          v.y = __float2bfloat16_rn(y1);
+          *reinterpret_cast<__nv_bfloat162*>(dst) = v;
+        } else {
+          char2 v;
+          v.x = requantize<FAST>(y0, e, slow);
+          v.y = requantize<FAST>(y1, e, slow);
+          *reinterpret_cast<char2*>(dst) = v;
+        }
+      }
+    }
+  }
+}
+
+// Consumer warpgroup's store of its 64 x BN tile (rows row0.., cols n0..):
+// column chunks of one 128-byte row each (32 int32 / f32, 64 bf16, 128 int8
+// columns) are written from the fragments into a staging buffer in the
+// 128-byte swizzle (conflict-free), then stored by one TMA store. The
+// buffers are taken in turn across tiles (`seq` counts the chunks), so up
+// to Smem::OUT_BUFS stores drain while the next chunks, and the next tile's
+// products, are computed. `cols` holds the first chunk's per-column vectors
+// and `rs` the two rows' per-row scales, read before the products.
+template <int BN, int STORE>
+__device__ __forceinline__ void store_tile(int (&acc)[BN / 2], const CUtensorMap* tmap_c, int M,
+                                           int N, int row0, int n0, const Epilogue& e,
+                                           ChunkCols<Chunks<BN, STORE>::PV> cols,
+                                           const float (&rs)[2], uint8_t* stg, int tid,
+                                           int barrier_id, unsigned& seq) {
+  using C = Chunks<BN, STORE>;
+#pragma unroll
+  for (int q = 0; q < C::CHUNKS; ++q, ++seq) {
+    constexpr int NBUF = Smem<BN>::OUT_BUFS;
+    uint8_t* buf = stg + (seq % NBUF) * Smem<BN>::OUT_BUF;
+    ChunkCols<C::PV> next{};  // the next chunk's vectors, read now
+    if (STORE != STORE_INT32 && q + 1 < C::CHUNKS)
+      load_cols(next, e, n0 + (q + 1) * C::JC * 8, N, tid & 31);
+    // The store that last used buf, NBUF stores ago, has read it.
+    if (tid == 0) tma_store_wait_read<NBUF - 1>();
+    named_sync(barrier_id);
+    bool slow = false;
+    write_chunk<BN, STORE, true>(acc, q, M, N, row0, n0, e, cols, rs, buf, tid, slow);
+    // A lane whose division left fast_div's range: the warp writes its part
+    // of the chunk again with __fdiv_rn (int8 only).
+    if (STORE == STORE_INT8 && __any_sync(~0u, slow))
+      write_chunk<BN, STORE, false>(acc, q, M, N, row0, n0, e, cols, rs, buf, tid, slow);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // visible to TMA
+    named_sync(barrier_id);
+    if (tid == 0) tma_store(tmap_c, buf, n0 + q * C::JC * 8, row0, l2_policy_evict_first());
+    if (q + 1 < C::CHUNKS) cols = next;
+  }
+}
+
+template <int BN, int STORE>
+__global__ void __launch_bounds__(THREADS, 1)
+    int8_gemm_kernel(const __grid_constant__ CUtensorMap tmap_a,
+                     const __grid_constant__ CUtensorMap tmap_b,
+                     const __grid_constant__ CUtensorMap tmap_c, int M, int N, int K, int stages,
+                     Epilogue epi) {
+  using L = Smem<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((ALIGN - (smem_u32(smem_raw) & (ALIGN - 1))) & (ALIGN - 1));
+  uint8_t* staging = ring + stages * L::STAGE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + L::STAGING);
+  uint64_t* empty = full + MAX_STAGES;
+
+  const int num_n = (N + BN - 1) / BN;
+  const int tiles = ((M + BM - 1) / BM) * num_n;
+  const int ksteps = (K + BK - 1) / BK;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // Producer: one thread keeps the ring full, across tile boundaries.
+    if (tid != 0) return;
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tmap_a)) : "memory");
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tmap_b)) : "memory");
+    const uint64_t keep_a = l2_policy_evict_last(), keep_b = keep_a;
+    int stage = 0;
+    unsigned phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (t / num_n) * BM, n0 = (t % num_n) * BN;
+      for (int ks = 0; ks < ksteps; ++ks) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        uint8_t* sa = ring + stage * L::STAGE_BYTES;
+        mbar_expect_tx(&full[stage], L::STAGE_BYTES);
+        tma_load(sa, &tmap_a, &full[stage], ks * BK, m0, keep_a);
+        tma_load(sa + L::A_BYTES, &tmap_b, &full[stage], ks * BK, n0, keep_b);
+        if (++stage == stages) stage = 0, phase ^= 1;
+      }
+    }
+    return;
   }
 
-  const int g = lane >> 2, t = lane & 3;
+  // Consumers: warpgroup c = wg - 1 owns rows 64c .. 64c + 63 of each tile.
+  const int c = wg - 1;
+  uint8_t* stg = staging + c * L::OUT_BUFS * L::OUT_BUF;
+  unsigned seq = 0;  // chunks stored so far
+  int acc[BN / 2];
+  int stage = 0, prev = 0;
+  unsigned phase = 0;
+  const int rq = (tid >> 5) * 16 + ((tid & 31) >> 2);  // this thread's first fragment row
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = (t / num_n) * BM, n0 = (t % num_n) * BN;
+    // The epilogue's per-column and per-row values, read while the products run.
+    ChunkCols<Chunks<BN, STORE>::PV> cols{};
+    float rs[2] = {0.0f, 0.0f};
+    if constexpr (STORE != STORE_INT32) {
+      load_cols(cols, epi, n0, N, tid & 31);
+      if (epi.rs) {
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const long long row = m0 + wm * 32 + mi * 16 + g + 8 * (e >> 1);
-        const long long col = n0 + wn * 32 + ni * 8 + 2 * t + (e & 1);
-        if (row < M && col < N) C[row * N + col] = acc[mi][ni][e];
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + 64 * c + rq + 8 * h;
+          if (row < M) rs[h] = __ldg(epi.rs + row);
+        }
       }
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      mbar_wait(&full[stage], phase);
+      const uint8_t* sa = ring + stage * L::STAGE_BYTES + c * 64 * BK;
+      const uint8_t* sb = ring + stage * L::STAGE_BYTES + L::A_BYTES;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) fence_reg(acc[i]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 32; ++kk) {
+        // Past K the tile holds zeros: skip those products.
+        if (ks * BK + kk * 32 < K)
+          qt::WgmmaS8<BN>::mma(acc, smem_desc(sa + 32 * kk), smem_desc(sb + 32 * kk));
+      }
+      wgmma_commit();
+      // Keep this stage's products in flight; the previous stage's are done,
+      // so its buffers go back to the producer.
+      wgmma_wait<1>();
+      if (ks > 0) mbar_arrive(&empty[prev]);
+      prev = stage;
+      if (++stage == stages) stage = 0, phase ^= 1;
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) fence_reg(acc[i]);
+    mbar_arrive(&empty[prev]);
+    store_tile<BN, STORE>(acc, &tmap_c, M, N, m0 + 64 * c, n0, epi, cols, rs, stg, tid, 1 + c,
+                          seq);
+  }
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// The int8 store's requantize alone, elementwise, as the epilogue runs it
+// (fast_div, and __fdiv_rn for a warp with a lane out of its range): for
+// holding the division against PyTorch's on inputs a GEMM seldom makes.
+__global__ void requantize_kernel(const float* __restrict__ y, int8_t* __restrict__ q, long long n,
+                                  Epilogue e) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const float v = i < n ? y[i] : 0.0f;
+  bool slow = false;
+  int8_t r = requantize<true>(v, e, slow);
+  if (__any_sync(~0u, slow)) r = requantize<false>(v, e, slow);
+  if (i < n) q[i] = r;
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no link against libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A row-major [rows, cols] matrix of `esize`-byte elements, `ld` elements
+// a row, as TMA tiles of box_rows x (128 bytes), 128-byte swizzle; loads fill
+// zeros past the edges and stores skip them.
+bool encode(CUtensorMap* map, const void* base, int esize, int rows, int cols, long long ld,
+            int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const CUtensorMapDataType type = esize == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                   : esize == 2 ? CU_TENSOR_MAP_DATA_TYPE_UINT16
+                                                : CU_TENSOR_MAP_DATA_TYPE_INT32;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * esize};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / esize), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+constexpr int ERR_ENCODE = -1;  // the tensor maps could not be made
+constexpr int ERR_ARGS = -2;    // shapes or alignment the kernel does not take
+
+// Per device: SM count and the shared memory a block may opt in to.
+struct DeviceInfo {
+  int sms = 0, smem = 0;
+};
+
+const DeviceInfo& device_info() {
+  static DeviceInfo info[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  DeviceInfo& d = info[dev & 63];
+  if (d.sms == 0) {
+    cudaDeviceGetAttribute(&d.smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return d;
+}
+
+// The share of the SMs busy over the waves of a persistent grid of `tiles`.
+double wave_fill(long long tiles, int sms) {
+  const long long waves = (tiles + sms - 1) / sms;
+  return static_cast<double>(tiles) / static_cast<double>(waves * sms);
+}
+
+// How a launch is laid out: tile width, ring stages, dynamic shared memory
+// and grid.
+struct Plan {
+  int bn = 0, stages = 0, smem = 0, grid = 0;
+};
+
+template <int BN>
+void fill_plan(Plan& p, const DeviceInfo& d, int M, int N) {
+  using L = Smem<BN>;
+  const int stages = static_cast<int>((d.smem - L::bytes(0)) / L::STAGE_BYTES);
+  p.bn = BN;
+  p.stages = stages > MAX_STAGES ? MAX_STAGES : stages;
+  p.smem = static_cast<int>(L::bytes(p.stages));
+  const long long tiles = static_cast<long long>((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  p.grid = static_cast<int>(tiles < d.sms ? tiles : d.sms);
+}
+
+// The narrowest tile that covers N, up to 256 (A is read once). Past 128,
+// 128-wide tiles for the int8 store (its epilogue's registers spill beside
+// 128 accumulators a thread) and where 256-wide ones would leave much of the
+// last wave idle (ResNet-50's 25088 x K x 256 GEMMs: 196 tiles on 132 SMs,
+// against 392); their A tile is read again from L2.
+Plan plan(int M, int N, int store) {
+  const DeviceInfo& d = device_info();
+  Plan p;
+  const long long mt = (M + BM - 1) / BM;
+  if (N <= 64)
+    fill_plan<64>(p, d, M, N);
+  else if (N <= 128 || store == STORE_INT8 ||
+           wave_fill(mt * ((N + 127) / 128), d.sms) > wave_fill(mt * ((N + 255) / 256), d.sms) + 0.15)
+    fill_plan<128>(p, d, M, N);
+  else
+    fill_plan<256>(p, d, M, N);
+  return p;
+}
+
+template <int BN, int STORE>
+int launch(const Plan& p, const void* a, const void* b, void* c, int M, int N, int K,
+           long long ldc, const Epilogue& epi, cudaStream_t stream) {
+  if (p.stages < 2) return ERR_ARGS;
+  CUtensorMap ta, tb, tc;
+  if (!encode(&ta, a, 1, M, K, K, BM) || !encode(&tb, b, 1, N, K, K, BN) ||
+      !encode(&tc, c, StoreTraits<STORE>::BYTES, M, N, ldc, 64))
+    return ERR_ENCODE;
+  auto kernel = int8_gemm_kernel<BN, STORE>;
+  static int smem_set = 0;  // per instantiation: the opt-in is made once
+  if (smem_set < p.smem) {
+    const int most = device_info().smem;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = most;
+  }
+  kernel<<<p.grid, THREADS, p.smem, stream>>>(ta, tb, tc, M, N, K, p.stages, epi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int STORE>
+int dispatch(const Plan& p, const void* a, const void* b, void* c, int M, int N, int K,
+             long long ldc, const Epilogue& epi, cudaStream_t s) {
+  if (p.bn == 64) return launch<64, STORE>(p, a, b, c, M, N, K, ldc, epi, s);
+  if constexpr (STORE == STORE_INT8) {  // plan() keeps the int8 store at BN <= 128
+    return launch<128, STORE>(p, a, b, c, M, N, K, ldc, epi, s);
+  } else {
+    return p.bn == 128 ? launch<128, STORE>(p, a, b, c, M, N, K, ldc, epi, s)
+                       : launch<256, STORE>(p, a, b, c, M, N, K, ldc, epi, s);
+  }
 }
 
 }  // namespace
 
-// a: int8[M,K], b: int8[N,K], c: int32[M,N], all contiguous on the device.
-// Launches on `stream`, allocates nothing, does not synchronize. Returns
-// cudaGetLastError() after the launch.
-extern "C" int int8_gemm_nt(const void* a, const void* b, void* c, long long M,
-                            long long N, long long K, void* stream) {
-  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
-  const auto A = static_cast<const int8_t*>(a);
-  const auto B = static_cast<const int8_t*>(b);
-  const auto C = static_cast<int32_t*>(c);
+// a: int8[M,K], b: int8[N,K], both contiguous, 16-byte aligned, K % 16 == 0.
+// The epilogue's vectors are contiguous and 8-byte aligned.
+// store: 0 int32 (no epilogue), 1 f32, 2 bf16, 3 int8 (out_s, out_zp); c is
+// [M, ldc] of that type (ldc >= N, ldc * its size % 16 == 0, 16-byte
+// aligned), of which the kernel writes the first N columns. cs: f32[N]
+// (stores 1-3); rs: f32[M] or null; bias: f32[N] or null; zpw: int32[N] or
+// null. Launches on `stream`, allocates nothing, does not synchronize.
+// Returns cudaGetLastError() after the launch, or a negative code if the
+// kernel was not launched.
+extern "C" int int8_gemm(const void* a, const void* b, void* c, long long M, long long N,
+                         long long K, long long ldc, int store, const void* cs, const void* rs,
+                         const void* bias, const void* zpw, int relu, float out_s, float out_zp,
+                         void* stream) {
+  const long long big = 1LL << 31;
+  const int esize = store == STORE_INT8 ? 1 : store == STORE_BF16 ? 2 : 4;
+  if (M <= 0 || N <= 0 || K <= 0 || M >= big || N >= big || K >= big || K % 16 != 0 ||
+      ldc < N || (ldc * esize) % 16 != 0 || (reinterpret_cast<uintptr_t>(a) & 15) ||
+      (reinterpret_cast<uintptr_t>(b) & 15) || (reinterpret_cast<uintptr_t>(c) & 15) ||
+      store < STORE_INT32 || store > STORE_INT8 || (store != STORE_INT32 && !cs))
+    return ERR_ARGS;
+  const Epilogue epi{static_cast<const float*>(cs), static_cast<const float*>(rs),
+                     static_cast<const float*>(bias), static_cast<const int32_t*>(zpw), relu,
+                     out_s, out_zp, 1.0f / out_s, out_s >= 0x1p-60f && out_s <= 0x1p60f};
   const auto s = static_cast<cudaStream_t>(stream);
-  if (K % 16 == 0 && qt::aligned16(a) && qt::aligned16(b))
-    int8_gemm_kernel<true><<<grid, THREADS, 0, s>>>(A, B, C, M, N, K);
-  else
-    int8_gemm_kernel<false><<<grid, THREADS, 0, s>>>(A, B, C, M, N, K);
-  return (int)cudaGetLastError();
+  const int m = static_cast<int>(M), n = static_cast<int>(N), k = static_cast<int>(K);
+  const Plan p = plan(m, n, store);
+  switch (store) {
+    case STORE_INT32: return dispatch<STORE_INT32>(p, a, b, c, m, n, k, ldc, epi, s);
+    case STORE_F32: return dispatch<STORE_F32>(p, a, b, c, m, n, k, ldc, epi, s);
+    case STORE_BF16: return dispatch<STORE_BF16>(p, a, b, c, m, n, k, ldc, epi, s);
+    default: return dispatch<STORE_INT8>(p, a, b, c, m, n, k, ldc, epi, s);
+  }
+}
+
+// q[i] = the int8 store's requantize of y[i] into (out_s, out_zp); y: f32[n],
+// q: int8[n]. Launches on `stream`; returns cudaGetLastError().
+extern "C" int int8_requantize(const void* y, void* q, long long n, float out_s, float out_zp,
+                               void* stream) {
+  if (n <= 0) return ERR_ARGS;
+  Epilogue e{};
+  e.out_s = out_s, e.out_zp = out_zp, e.out_r = 1.0f / out_s;
+  e.div_fast = out_s >= 0x1p-60f && out_s <= 0x1p60f;
+  const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
+  requantize_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(y), static_cast<int8_t*>(q), n, e);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -15,6 +15,7 @@ import torch
 
 from quantnet_torch.core.config import resolve_device
 from quantnet_torch.core.types import ActQuant, DynamicActQuant, QTensor
+from quantnet_torch.ops.linear import gemm_constants
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -23,20 +24,21 @@ def _tensor(a, device) -> torch.Tensor:
 
 def _convert(node, device):
     if isinstance(node, dict):
-        return {k: _convert(v, device) for k, v in node.items()}
+        out = {k: _convert(v, device) for k, v in node.items()}
+        if isinstance(out.get("w"), QTensor) and isinstance(out.get("aq"), (ActQuant, DynamicActQuant)):
+            out["gemm"] = gemm_constants(out)  # the kernels' operands, made once here
+        return out
     if hasattr(node, "values") and hasattr(node, "scale"):  # a QTensor
         if getattr(node, "group_size", None) is not None:
             raise NotImplementedError("group-wise QTensor weights come with a later slice")
         zp = getattr(node, "zero_point", None)
-        qt = QTensor(
+        return QTensor(
             values=_tensor(node.values, device),
             scale=_tensor(node.scale, device),
             zero_point=None if zp is None else _tensor(zp, device),
             axis=node.axis,
             bits=node.bits,
         )
-        qt.nk()
-        return qt
     if hasattr(node, "scale") and hasattr(node, "zero_point"):  # an ActQuant ('aq', 'oq')
         return ActQuant(scale=_tensor(node.scale, device), zero_point=_tensor(node.zero_point, device))
     if hasattr(node, "handoff"):  # a DynamicActQuant marker

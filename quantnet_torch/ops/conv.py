@@ -5,19 +5,21 @@ Three paths, picked by the layer's leaves:
 
   fp32/bf16    w: Tensor                -> conv in the activation dtype
   dynamic PTQ  w: QTensor, aq dynamic   -> per-tensor quant, zero pre-pad,
-                                           im2col, int8 GEMM kernel, f32
-                                           epilogue, activation, handoff cast
+                                           im2col, int8 GEMM kernel with the
+                                           epilogue (scale, bias, activation,
+                                           handoff) fused into its store
   static PTQ   w: QTensor, aq ActQuant  -> frozen affine quant (or int8 input
                                            already in this layer's domain),
                                            zero-point pre-pad, im2col, int8
-                                           GEMM kernel, - zp * wsum, f32
-                                           epilogue, activation
+                                           GEMM kernel with - zp * wsum and
+                                           the epilogue fused into its store
 
 Every path takes `out_quant` (the consumer's ActQuant) and then requantizes
-its output to int8 in that domain: the static int8 tensor handoff. The int8
-conv always lowers through im2col to the int8 GEMM kernel, as the JAX package
-does under `int8_conv_backend="im2col"`. The weight-only path, groups, relu6
-and the probe / QAT branches come with later slices and raise here.
+its output to int8 in that domain: the static int8 tensor handoff, which the
+int8 GEMM kernel stores itself. The int8 conv always lowers through im2col
+to the int8 GEMM kernel, as the JAX package does under
+`int8_conv_backend="im2col"`. The weight-only path, groups, relu6 and the
+probe / QAT branches come with later slices and raise here.
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ import torch.nn.functional as F
 from quantnet_torch.core.config import DEFAULT_FLAGS, Flags
 from quantnet_torch.core.quantize import dynamic_quantize, maybe_requantize, quantize_affine
 from quantnet_torch.core.types import ActQuant, DynamicActQuant, QTensor
-from quantnet_torch.ops.linear import apply_act, int8_matmul
+from quantnet_torch.ops.int8_matmul import K_ALIGN, Epilogue
+from quantnet_torch.ops.linear import apply_act, int8_epilogue, int8_matmul
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 Padding = Union[str, Pads]
@@ -70,15 +73,24 @@ def _resolve_pads(padding: Padding, h: int, w: int, kh: int, kw: int, stride: in
     return ((int(pt), int(pb)), (int(pl), int(pr)))
 
 
-def _im2col(x: torch.Tensor, kh: int, kw: int, stride: int) -> torch.Tensor:
-    """Patches: [N,H,W,C] -> [N,Ho,Wo,kh*kw*C], patch order (kh, kw, C), which
-    matches an HWIO weight reshaped to (kh*kw*C, O). Data movement only."""
+def _im2col(x: torch.Tensor, kh: int, kw: int, stride: int, k_multiple: int = 1) -> torch.Tensor:
+    """Patches: [N,H,W,C] -> [N,Ho,Wo,K'], patch order (kh, kw, C), which
+    matches an HWIO weight reshaped to (kh*kw*C, O); K = kh*kw*C, zero-padded
+    in the same copy to K' = a multiple of `k_multiple` (the int8 GEMM
+    kernel's K_ALIGN). Data movement only."""
     n, h, w, c = x.shape
     ho = (h - kh) // stride + 1
     wo = (w - kw) // stride + 1
+    k = kh * kw * c
     # unfold -> [N, Ho, Wo, C, kh, kw]; bring (kh, kw) ahead of C.
     p = x.unfold(1, kh, stride).unfold(2, kw, stride).permute(0, 1, 2, 4, 5, 3)
-    return p.reshape(n, ho, wo, kh * kw * c)
+    pad = -k % k_multiple
+    if pad == 0:
+        return p.reshape(n, ho, wo, k)
+    out = x.new_empty((n, ho, wo, k + pad))
+    out[..., k:] = 0
+    out[..., :k].unflatten(-1, (kh, kw, c)).copy_(p)
+    return out
 
 
 def _conv_no_tf32(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
@@ -98,19 +110,20 @@ def _conv_no_tf32(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor
 
 def _int8_conv(
     qx: torch.Tensor,
-    w: QTensor,
+    layer: dict,
     stride: int,
     pads: Pads,
     flags: Flags,
+    epi: Epilogue,
     pad_value: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """int8 NHWC conv via pre-pad (0, or the zero point) + im2col + the int8
-    GEMM -> int32."""
-    kh, kw, _, co = w.values.shape
-    patches = _im2col(_pad_nhwc(qx, pads, pad_value), kh, kw, stride)
+    GEMM kernel with `epi` fused -> [N, Ho, Wo, O] of epi.out."""
+    kh, kw, _, co = layer["w"].values.shape
+    patches = _im2col(_pad_nhwc(qx, pads, pad_value), kh, kw, stride, K_ALIGN)
     n, ho, wo, pc = patches.shape
-    acc = int8_matmul(patches.reshape(n * ho * wo, pc), w, flags)
-    return acc.reshape(n, ho, wo, co)
+    y = int8_matmul(patches.reshape(n * ho * wo, pc), layer, flags, epi)
+    return y.reshape(n, ho, wo, co)
 
 
 def conv2d(
@@ -123,7 +136,7 @@ def conv2d(
     out_quant: Optional[ActQuant] = None,
     flags: Flags = DEFAULT_FLAGS,
 ) -> torch.Tensor:
-    """Apply a conv layer {'w' (HWIO), optional 'b', 'aq', 'wsum'} to NHWC x.
+    """Apply a conv layer {'w' (HWIO), optional 'b', 'aq', 'wsum', 'gemm'} to NHWC x.
 
     padding: "SAME" (XLA's, asymmetric at stride 2), "VALID", or explicit
     ((top, bottom), (left, right)), as the ResNet's `torch_pad` passes it.
@@ -146,25 +159,15 @@ def conv2d(
     if isinstance(aq, DynamicActQuant):
         # Symmetric per-batch quant: the f32 zero is the int8 zero, so pad with 0.
         qx, x_scale = dynamic_quantize(x, axis=None)
-        acc = _int8_conv(qx, w, stride, pads, flags)
-        y = acc.float() * (x_scale * w.scale)
-        if b is not None:
-            y = y + b
-        y = apply_act(y, activation)
-        if aq.handoff is not None and out_quant is None:
-            y = y.to(aq.handoff_dtype)
-        return maybe_requantize(y, out_quant)
+        epi = int8_epilogue(layer, x_scale, activation=activation, out_quant=out_quant)
+        return _int8_conv(qx, layer, stride, pads, flags, epi)
 
     if isinstance(aq, ActQuant):
         # int8 input is already in this layer's domain (its producer
         # requantized into it); the f32 zero is the zero point, so pad with it.
         qx = x if x.dtype == torch.int8 else quantize_affine(x, aq.scale, aq.zero_point)
-        acc = _int8_conv(qx, w, stride, pads, flags, aq.zero_point.to(torch.int8))
-        acc = acc - aq.zero_point * layer["wsum"]
-        y = acc.float() * (aq.scale * w.scale)
-        if b is not None:
-            y = y + b
-        return maybe_requantize(apply_act(y, activation), out_quant)
+        epi = int8_epilogue(layer, activation=activation, out_quant=out_quant)
+        return _int8_conv(qx, layer, stride, pads, flags, epi, aq.zero_point.to(torch.int8))
 
     raise NotImplementedError(
         "the weight-only quantized conv comes with a later slice; got aq="

@@ -10,11 +10,15 @@ bf16 x is what the dynamic model's fc1 receives (the bf16 handoff of the conv
 before it), and the Pallas body then works on bf16 values
 (pallas_matmul.py:128-131). Held against that body in interpret mode at
 fc1's depth (K = 4096, 8 K-blocks), XLA rounds these steps and no others:
-    s  = max(absmax, bf16(1e-8)) / 127         f32, not rounded
+    s  = max(absmax, bf16(1e-8)) * f32(1/127)  f32, not rounded
     q  = clip(round(bf16(x / bf16(s))), -127, 127)
     acc += f32(q @ W_block) * s                 with the f32 s
 so the quotient divides by the scale rounded to bf16, while the accumulate
 multiplies by the unrounded one (XLA's excess precision between fusions).
+The kernel is jitted (pallas_matmul.py:136), and XLA takes the body's
+`/ 127.0` as a multiply by the f32 reciprocal, for f32 and bf16 x alike
+(held against the interpret-mode kernel: a divide misses the scale of about
+4% of rows).
 With those steps the port agrees with the original to the last bit but for
 two FMA contractions XLA makes on the CPU (acc update, epilogue), which the
 port leaves out, as on the f32 path (tests/test_torch_kernels_plain.py).
@@ -28,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from quantnet_torch import _build
-from quantnet_torch.core.quantize import EPS, SYM_MAX, _div
+from quantnet_torch.core.quantize import EPS, SYM_MAX, _mul_reciprocal
 from quantnet_torch.ops.int8_matmul import int8_gemm_plain
 
 BLOCK_K = 512
@@ -59,7 +63,7 @@ def fused_dynamic_gemm_plain(
     for k0 in range(0, pk, bk):
         xb = xp[:, k0 : k0 + bk]
         amax = torch.amax(torch.abs(xb), dim=1, keepdim=True)
-        s = _div(torch.clamp_min(amax, BF16_EPS if bf16 else EPS), SYM_MAX)
+        s = _mul_reciprocal(torch.clamp_min(amax, BF16_EPS if bf16 else EPS), SYM_MAX)
         if bf16:
             quot = (xb / s.bfloat16().float()).bfloat16().float()
         else:

@@ -1,15 +1,78 @@
-"""int8 GEMM with int32 accumulation: the port of int8_matmul_pallas.
+"""int8 GEMM with int32 accumulation (the port of int8_matmul_pallas), and the
+same kernel with the layer's epilogue fused into its store.
 
-`int8_gemm` launches the hand-written CUDA kernel (csrc/int8_gemm.cu) on a
-CUDA tensor and runs `int8_gemm_plain` on a CPU tensor; there is no other
-route. B is taken as int8[N, K], K contiguous: weights are transposed once at
-quantize time (`QTensor.nk`), so both operands stream along K.
+`int8_gemm(a, b_nk)` is the TPU kernel's own function, int8[M,K] @
+int8[N,K]^T -> int32[M,N]. `int8_gemm_epilogue(a, b_nk, epi)` runs the
+epilogue that an int8 conv or linear applies to that accumulator (`Epilogue`)
+inside the kernel and stores the layer's output type: f32, the bf16 handoff or
+the int8 handoff. Both launch the hand-written CUDA kernel
+(csrc/int8_gemm.cu) on a CUDA tensor and run their plain version on a CPU
+tensor; there is no other route. `int8_gemm.launches` counts every launch of
+the kernel, whatever it stores.
+
+B is taken as int8[N, K], K contiguous: weights are transposed once at
+quantize time (`QTensor.nk`), so both operands stream along K. The kernel's
+TMA loads take rows of a multiple of 16 bytes from 16-byte-aligned bases: the
+wrappers zero-pad K to a multiple of `K_ALIGN` where it is not (exact for an
+integer product; the ops layer hands over operands padded already) and raise
+on operands that are not contiguous or not aligned.
 """
 from __future__ import annotations
 
+import ctypes
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
 import torch
+import torch.nn.functional as F
 
 from quantnet_torch import _build
+from quantnet_torch.core.quantize import quantize_affine
+from quantnet_torch.core.types import ActQuant
+
+K_ALIGN = 16
+# The kernel's store codes (csrc/int8_gemm.cu, enum Store).
+_STORES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2, torch.int8: 3}
+
+
+@dataclass(frozen=True)
+class Epilogue:
+    """What an int8 layer does to its int32 accumulator, in this order:
+    acc - zpw (int32), float(acc) * s with s = cs, or rs[:, None] * cs, + bias,
+    relu, then the store in `out`: f32, bf16, or int8 requantized into
+    `out_quant`'s domain.
+
+    cs:   f32[N], the activation scale times the weight scale per column
+    bias: f32[N] or None
+    zpw:  int32[N] (the static path's zero_point * colsum(w)) or None
+    rs:   f32[M], a per-row activation scale (the dynamic linear), or None
+    """
+
+    cs: torch.Tensor
+    bias: Optional[torch.Tensor] = None
+    zpw: Optional[torch.Tensor] = None
+    rs: Optional[torch.Tensor] = None
+    relu: bool = False
+    out: torch.dtype = torch.float32
+    out_quant: Optional[ActQuant] = None
+
+    def check(self, m: int, n: int, a: torch.Tensor) -> None:
+        """Raises unless the epilogue fits an [M, N] product of operands like `a`."""
+        if self.out not in (torch.float32, torch.bfloat16, torch.int8):
+            raise ValueError(f"the epilogue stores f32, bf16 or int8, not {self.out}")
+        if (self.out == torch.int8) != (self.out_quant is not None):
+            raise ValueError("an int8 store needs out_quant, and only an int8 store takes it")
+        dev = a.get_device()
+        for name, t, dtype, size in (("cs", self.cs, torch.float32, n),
+                                     ("bias", self.bias, torch.float32, n),
+                                     ("zpw", self.zpw, torch.int32, n),
+                                     ("rs", self.rs, torch.float32, m)):
+            if t is None:
+                continue
+            if t.dtype != dtype or t.shape != (size,):
+                raise ValueError(f"epilogue {name} must be {dtype}[{size}], got {t.dtype}{tuple(t.shape)}")
+            if t.get_device() != dev or not t.is_contiguous() or t.data_ptr() % 8:
+                raise ValueError(f"epilogue {name} must be contiguous and 8-byte aligned on {a.device}")
 
 
 def int8_gemm_plain(a: torch.Tensor, b_nk: torch.Tensor) -> torch.Tensor:
@@ -22,42 +85,142 @@ def int8_gemm_plain(a: torch.Tensor, b_nk: torch.Tensor) -> torch.Tensor:
     return (a.double() @ b_nk.double().t()).to(torch.int32)
 
 
-def _check_operands(a: torch.Tensor, b_nk: torch.Tensor) -> None:
+def apply_epilogue(acc: torch.Tensor, epi: Epilogue) -> torch.Tensor:
+    """The epilogue on an int32 accumulator in PyTorch ops, as the ops layer
+    ran it before the kernel took it over."""
+    if epi.zpw is not None:
+        acc = acc - epi.zpw
+    scale = epi.cs if epi.rs is None else epi.rs[:, None] * epi.cs
+    y = acc.float() * scale
+    if epi.bias is not None:
+        y = y + epi.bias
+    if epi.relu:
+        y = torch.relu(y)
+    if epi.out == torch.int8:
+        return quantize_affine(y, epi.out_quant.scale, epi.out_quant.zero_point)
+    return y.to(epi.out)
+
+
+def int8_gemm_epilogue_plain(a: torch.Tensor, b_nk: torch.Tensor, epi: Epilogue) -> torch.Tensor:
+    """The int8 GEMM, then `apply_epilogue`: the function the kernel must
+    match bit for bit."""
+    return apply_epilogue(int8_gemm_plain(a, b_nk), epi)
+
+
+def pad_k(a: torch.Tensor, b_nk: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both operands with K zero-padded to a multiple of K_ALIGN (unchanged
+    where it is one already): the same product, in rows TMA can load."""
+    pad = -a.shape[1] % K_ALIGN
+    if pad == 0:
+        return a, b_nk
+    return F.pad(a, (0, pad)), F.pad(b_nk, (0, pad))
+
+
+def _operands(a: torch.Tensor, b_nk: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Checks both operands and returns them K-padded for the kernel."""
     if a.dtype != torch.int8 or b_nk.dtype != torch.int8:
         raise TypeError(f"int8_gemm takes int8 operands, got {a.dtype} and {b_nk.dtype}")
     if a.ndim != 2 or b_nk.ndim != 2 or a.shape[1] != b_nk.shape[1]:
         raise ValueError(
             f"int8_gemm takes a[M,K] and b[N,K], got {tuple(a.shape)} and {tuple(b_nk.shape)}"
         )
-    if a.device != b_nk.device:
+    if not (a.is_cuda or a.is_cpu):
+        raise ValueError(f"int8_gemm runs on cuda or cpu tensors, got {a.device}")
+    if a.get_device() != b_nk.get_device() or a.is_cuda != b_nk.is_cuda:
         raise ValueError(f"operands on different devices: {a.device} and {b_nk.device}")
+    if not (a.is_contiguous() and b_nk.is_contiguous()):
+        raise ValueError("int8_gemm takes contiguous operands")
+    if (a.data_ptr() | b_nk.data_ptr()) % 16:
+        raise ValueError("int8_gemm takes 16-byte-aligned operands")
+    return pad_k(a, b_nk)
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor, epi: Optional[Epilogue]) -> torch.Tensor:
+    """Runs the kernel into a new [M, N] tensor of the store's type. Its rows
+    are allocated a multiple of 16 bytes wide (TMA's row stride); where N
+    falls short of that, the result is a view of the first N columns."""
+    m, k = a.shape
+    n = b.shape[0]
+    dtype = torch.int32 if epi is None else epi.out
+    per_row = 16 // dtype.itemsize
+    ldc = -(-n // per_row) * per_row
+    out = a.new_empty((m, ldc), dtype=dtype)
+    if m == 0 or n == 0:
+        return out[:, :n]
+    if epi is None:
+        store, ptrs, relu, out_s, out_zp = 0, (None,) * 4, 0, 0.0, 0.0
+    else:
+        ptrs = tuple(None if t is None else t.data_ptr() for t in (epi.cs, epi.rs, epi.bias, epi.zpw))
+        store, relu = _STORES[epi.out], int(epi.relu)
+        out_s, out_zp = epi.out_quant.host_scalars() if epi.out_quant is not None else (0.0, 0.0)
+    fn = _build.kernel("int8_gemm")
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, ldc, store, *ptrs, relu, out_s, out_zp)
+    dev = a.get_device()
+    # The raw current device and stream: torch.cuda.current_stream() builds
+    # a Stream object, several microseconds of host time on every launch.
+    if dev == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    _build.check(err, "int8_gemm")
+    int8_gemm.launches += 1
+    return out if ldc == n else out[:, :n]
 
 
 def int8_gemm(a: torch.Tensor, b_nk: torch.Tensor) -> torch.Tensor:
-    """int8[M,K] @ int8[N,K]^T -> int32[M,N], exact.
-
-    CUDA tensors (contiguous) go to the kernel; CPU tensors to the plain
-    version. `int8_gemm.launches` counts kernel launches.
-    """
-    _check_operands(a, b_nk)
+    """int8[M,K] @ int8[N,K]^T -> int32[M,N], exact: the kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    a, b_nk = _operands(a, b_nk)
     if a.device.type == "cpu":
         return int8_gemm_plain(a, b_nk)
-    if a.device.type != "cuda":
-        raise ValueError(f"int8_gemm runs on cuda or cpu tensors, got {a.device}")
-    if not (a.is_contiguous() and b_nk.is_contiguous()):
-        raise ValueError("int8_gemm's kernel takes contiguous operands")
-    m, k = a.shape
-    n = b_nk.shape[0]
-    c = torch.empty((m, n), dtype=torch.int32, device=a.device)
-    if m == 0 or n == 0:
-        return c
-    fn = _build.kernel("int8_gemm")
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), b_nk.data_ptr(), c.data_ptr(), m, n, k, stream)
-    _build.check(err, "int8_gemm")
-    int8_gemm.launches += 1
-    return c
+    return _launch(a, b_nk, None)
+
+
+def int8_gemm_epilogue(a: torch.Tensor, b_nk: torch.Tensor, epi: Epilogue) -> torch.Tensor:
+    """The int8 GEMM with `epi` fused into the kernel's store -> epi.out[M,N]:
+    the kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    a, b_nk = _operands(a, b_nk)
+    epi.check(a.shape[0], b_nk.shape[0], a)
+    if a.device.type == "cpu":
+        return int8_gemm_epilogue_plain(a, b_nk, epi)
+    return _launch(a, b_nk, epi)
+
+
+def requantize(y: torch.Tensor, out_quant: ActQuant) -> torch.Tensor:
+    """The int8 store's requantize alone, elementwise on a CUDA f32 tensor:
+    the kernel's division and rounding, to be held against quantize_affine
+    (its plain version) on inputs that a GEMM seldom produces."""
+    if not (y.is_cuda and y.dtype == torch.float32 and y.is_contiguous()):
+        raise ValueError("requantize takes a contiguous f32 CUDA tensor")
+    q = torch.empty(y.shape, dtype=torch.int8, device=y.device)
+    if y.numel():
+        fn = _build.function("int8_gemm", "int8_requantize", [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_float,
+            ctypes.c_void_p])
+        with torch.cuda.device(y.device):
+            stream = torch.cuda.current_stream(y.device).cuda_stream
+            _build.check(fn(y.data_ptr(), q.data_ptr(), y.numel(), *out_quant.host_scalars(), stream),
+                         "int8_requantize")
+    return q
+
+
+def requantize_cases(scale: float, device) -> torch.Tensor:
+    """f32 inputs for holding `requantize` against quantize_affine: random
+    magnitudes over 2^-120 .. 2^120 (past the fast division's range too),
+    normal values, zeros, and values within 16 ulps of every half-integer
+    multiple of `scale` from -130.5 to 130.5, where the rounding of
+    y / scale decides the int8 result."""
+    g = torch.Generator(device=device).manual_seed(7)
+    n = 1 << 20
+    mant = torch.rand((n,), generator=g, device=device) + 1.0
+    expo = torch.randint(-120, 121, (n,), generator=g, device=device).float()
+    sign = torch.randint(0, 2, (n,), generator=g, device=device).float() * 2 - 1
+    near = torch.randn((n,), generator=g, device=device) * (60.0 * scale)
+    halves = ((torch.arange(-130, 131, device=device, dtype=torch.float64) + 0.5) * scale).float()
+    steps = torch.arange(-16, 17, device=device, dtype=torch.int32)
+    ties = (halves.view(torch.int32)[:, None] + steps).view(torch.float32).reshape(-1)
+    return torch.cat([sign * mant * torch.exp2(expo), near, ties, torch.zeros(64, device=device)])
 
 
 int8_gemm.launches = 0

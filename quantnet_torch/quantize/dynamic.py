@@ -4,6 +4,8 @@ Fold BN, quantize every weight to int8 (per output channel by default) and
 tag every layer with a DynamicActQuant marker, so the ops quantize each
 layer's input per batch. Every layer but the classifier hands its output to
 the next one in `handoff` dtype (bf16 by default); the logits stay f32.
+Each quantized layer keeps its GEMM kernels' frozen operands under 'gemm'
+(ops/linear.py::gemm_constants).
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import Optional, Tuple
 import torch
 
 from quantnet_torch.core.types import DynamicActQuant
+from quantnet_torch.ops.linear import gemm_constants
 from quantnet_torch.quantize.common import (
     first_layer_path,
     last_layer_path,
@@ -44,10 +47,9 @@ def quantize(
         if (skip_last_layer and path == last) or (skip_first_layer and path == first):
             return dict(layer)
         out = dict(layer)
-        qw = quantize_weight(layer["w"], per_channel)
-        qw.nk()  # the GEMM kernels' [N, K] operand, made once here
-        out["w"] = qw
+        out["w"] = quantize_weight(layer["w"], per_channel)
         out["aq"] = DynamicActQuant(handoff=None if path == last else handoff)
+        out["gemm"] = gemm_constants(out)
         return out
 
     return walk_layers(params, q), {}

@@ -6,8 +6,9 @@ observer per capture key turns them into frozen affine (scale, zero_point).
 The bake quantizes every weight to int8 (per output channel by default) and
 attaches to each layer its input's `ActQuant` under 'aq' and the weight's
 column sums under 'wsum'; with `pre_add_quant`, residual-branch outputs get an
-'oq' as well. The model's apply then runs int8 x int8 GEMMs and hands int8
-tensors from layer to layer.
+'oq' as well. Each quantized layer keeps its GEMM kernels' frozen operands
+under 'gemm' (ops/linear.py::gemm_constants). The model's apply then runs
+int8 x int8 GEMMs and hands int8 tensors from layer to layer.
 
 The JAX package bakes under jit; the port takes the same divisions as XLA
 does there (quantnet_torch/core/quantize.py), so both bake the same bits from
@@ -22,6 +23,7 @@ import torch
 
 from quantnet_torch.core.observers import make_observer
 from quantnet_torch.core.types import ActQuant
+from quantnet_torch.ops.linear import gemm_constants
 from quantnet_torch.quantize.common import (
     first_layer_path,
     last_layer_path,
@@ -138,7 +140,6 @@ def bake(
             return dict(layer)
         out = dict(layer)
         qw = quantize_weight(layer["w"], per_channel)
-        qw.nk()  # the GEMM kernels' [N, K] operand, made once here
         out["w"] = qw
         scale, zp = act_qparams[path]
         out["aq"] = ActQuant(scale=scale, zero_point=zp)
@@ -146,6 +147,7 @@ def bake(
         if pre_add_quant and f"{path}:out" in act_qparams:
             oscale, ozp = act_qparams[f"{path}:out"]
             out["oq"] = ActQuant(scale=oscale, zero_point=ozp)
+        out["gemm"] = gemm_constants(out)
         return out
 
     qparams = walk_layers(params, q)

@@ -61,12 +61,35 @@ def model():
     }
 
 
-def _jax_forward(monkeypatch, m, matmul, conv):
+def jit_unfused(fn, *args):
+    """fn(*args) under jax.jit, compiled without XLA's fusion pass. XLA's CPU
+    backend contracts a multiply and an add inside one fusion into an FMA
+    (the epilogue's acc * scale + b), which the TPU does not do and the
+    port's kernels do not do either; every other jit rewrite (the f32
+    reciprocal for / 127 among them) stays."""
+    compiled = jax.jit(fn).lower(*args).compile({"xla_disable_hlo_passes": "fusion"})
+    return compiled(*args)
+
+
+def _use_backends(monkeypatch, matmul, conv):
     monkeypatch.setattr(jcfg.flags, "int8_matmul_backend", matmul)
     monkeypatch.setattr(jcfg.flags, "int8_conv_backend", conv)
-    capture = {}
+
+
+def _jax_forward(monkeypatch, m, matmul, conv):
+    """The JAX forward under jit, as the JAX package runs it (bench, evaluator,
+    serving): XLA then takes the activation scale's amax / 127 as a multiply
+    by f32(1 / 127), which the port reproduces; the eager forward divides."""
+    _use_backends(monkeypatch, matmul, conv)
+
+    def forward(q, qs, x):
+        capture = {}
+        logits, _ = jconvnet.apply(q, qs, x, capture=capture)
+        return logits, capture
+
+    args = (m["jq"], m["jqs"], jnp.asarray(m["x"]))
     with pltpu.force_tpu_interpret_mode():
-        logits, _ = jconvnet.apply(m["jq"], m["jqs"], jnp.asarray(m["x"]), capture=capture)
+        logits, capture = jax.block_until_ready(jit_unfused(forward, *args))
     return np.asarray(logits), capture
 
 

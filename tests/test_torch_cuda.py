@@ -10,10 +10,19 @@ import pytest
 import torch
 
 from quantnet_torch.core.config import Flags
+from quantnet_torch.core.quantize import quantize_affine
 from quantnet_torch.core.types import ActQuant
 from quantnet_torch.models import convnet, resnet
 from quantnet_torch.ops.fused_dynamic_matmul import fused_dynamic_gemm, fused_dynamic_gemm_plain
-from quantnet_torch.ops.int8_matmul import int8_gemm, int8_gemm_plain
+from quantnet_torch.ops.int8_matmul import (
+    Epilogue,
+    int8_gemm,
+    int8_gemm_epilogue,
+    int8_gemm_epilogue_plain,
+    int8_gemm_plain,
+    requantize,
+    requantize_cases,
+)
 from quantnet_torch.ops.residual_boundary import residual_boundary, residual_boundary_plain
 from quantnet_torch.quantize import dynamic, static
 
@@ -27,9 +36,21 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize(
-    "m,k,n", [(48, 200, 136), (7, 33, 5), (1, 16, 1), (300, 27, 64), (4096, 576, 64), (129, 2304, 256)]
-)
+# The convnet's six conv GEMMs at bs1024 (conv1's K = 27 as the wrapper takes
+# it, padded to 32 inside) and ResNet-50's 20 GEMM shapes at bs128, 224x224.
+CONVNET_GEMMS = [(1048576, 27, 64), (1048576, 576, 64), (262144, 576, 128), (262144, 1152, 128),
+                 (65536, 1152, 256), (65536, 2304, 256)]
+RESNET50_GEMMS = [(128, 2048, 1000), (6272, 512, 2048), (6272, 1024, 2048), (6272, 2048, 512),
+                  (6272, 4608, 512), (25088, 256, 1024), (25088, 512, 1024), (25088, 1024, 256),
+                  (25088, 1024, 512), (25088, 2304, 256), (100352, 128, 512), (100352, 256, 512),
+                  (100352, 512, 128), (100352, 512, 256), (100352, 1152, 128), (401408, 64, 64),
+                  (401408, 64, 256), (401408, 256, 64), (401408, 256, 128), (401408, 576, 64)]
+# Ragged shapes: M, N and K off every tile and vector step.
+RAGGED_GEMMS = [(48, 200, 136), (7, 33, 5), (1, 16, 1), (300, 27, 64), (4096, 576, 64),
+                (129, 2304, 256), (513, 130, 130), (200, 64, 520), (65, 1000, 300)]
+
+
+@pytest.mark.parametrize("m,k,n", RAGGED_GEMMS + CONVNET_GEMMS + RESNET50_GEMMS)
 def test_int8_gemm_exact(dev, m, k, n):
     g = torch.Generator(device=dev).manual_seed(m + k + n)
     a = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
@@ -54,21 +75,78 @@ def test_fused_dynamic_gemm_matches_plain(dev, m, k, n, dtype):
     torch.testing.assert_close(got, fused_dynamic_gemm_plain(x, w, ws, b), rtol=1e-5, atol=1e-4)
 
 
+def _epilogues(dev, g, m, n):
+    """Every store, with and without zpw, bias, relu and a per-row scale."""
+    cs = torch.rand((n,), generator=g, device=dev) * 1e-3 + 1e-5
+    bias = torch.randn((n,), generator=g, device=dev)
+    zpw = torch.randint(-20000, 20000, (n,), generator=g, device=dev, dtype=torch.int32)
+    rs = torch.rand((m,), generator=g, device=dev) * 1e-2 + 1e-4
+    aq = ActQuant(torch.tensor(0.0123, device=dev), torch.tensor(-7, dtype=torch.int32, device=dev))
+    return {
+        "f32": Epilogue(cs=cs),
+        "f32_zpw_bias_relu": Epilogue(cs=cs, bias=bias, zpw=zpw, relu=True),
+        "f32_rs_bias": Epilogue(cs=cs, bias=bias, rs=rs),
+        "bf16_bias_relu": Epilogue(cs=cs, bias=bias, relu=True, out=torch.bfloat16),
+        "bf16_rs": Epilogue(cs=cs, rs=rs, out=torch.bfloat16),
+        "int8_zpw_bias_relu": Epilogue(cs=cs, bias=bias, zpw=zpw, relu=True, out=torch.int8, out_quant=aq),
+        "int8_zpw": Epilogue(cs=cs, zpw=zpw, out=torch.int8, out_quant=aq),
+        "int8_bias": Epilogue(cs=cs, bias=bias, out=torch.int8, out_quant=aq),
+    }
+
+
+@pytest.mark.parametrize("store", ["f32", "f32_zpw_bias_relu", "f32_rs_bias", "bf16_bias_relu",
+                                   "bf16_rs", "int8_zpw_bias_relu", "int8_zpw", "int8_bias"])
+@pytest.mark.parametrize("m,k,n", [(7, 48, 5), (300, 27, 64), (1000, 576, 128), (513, 256, 256),
+                                   (129, 2048, 1000), (4096, 1152, 2048), (65536, 2304, 256)])
+def test_int8_gemm_epilogue_bit_equal(dev, m, k, n, store):
+    """Each store of the fused kernel against int8_gemm_epilogue_plain: the
+    same bits (compared as integers, so -0 and +0 count as different)."""
+    g = torch.Generator(device=dev).manual_seed(m + 3 * k + 7 * n)
+    a = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    b = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+    epi = _epilogues(dev, g, m, n)[store]
+    before = int8_gemm.launches
+    got = int8_gemm_epilogue(a, b, epi)
+    torch.cuda.synchronize()
+    assert int8_gemm.launches == before + 1
+    ref = int8_gemm_epilogue_plain(a, b, epi)
+    assert got.dtype == ref.dtype == epi.out and got.shape == ref.shape
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.int8: torch.int8}[epi.out]
+    assert torch.equal(got.contiguous().view(bits), ref.view(bits))
+
+
+@pytest.mark.parametrize("scale,zp", [(0.061, -128), (0.0123, -7), (1e-8, 0), (0.37, 5),
+                                      (7.0, 127), (2.0**-70, 3)])
+def test_requantize_division_matches_quantize_affine(dev, scale, zp):
+    """The int8 store's branch-free division (with its fallback) against
+    PyTorch's true division in quantize_affine, on 2.1M inputs."""
+    y = requantize_cases(scale, dev)
+    aq = ActQuant(torch.tensor(scale, device=dev), torch.tensor(zp, dtype=torch.int32, device=dev))
+    got = requantize(y, aq)
+    torch.cuda.synchronize()
+    assert torch.equal(got, quantize_affine(y, aq.scale, aq.zero_point))
+
+
 def test_wrapper_rejects_non_contiguous(dev):
     a = torch.zeros((8, 32), dtype=torch.int8, device=dev)
     with pytest.raises(ValueError):
         int8_gemm(a[:, ::2], a[:, ::2].contiguous())
 
 
-def test_model_goes_through_the_kernels(dev):
+@pytest.mark.parametrize("linear,launches", [("fused", (6, 2)), ("unfused", (8, 0))])
+def test_model_goes_through_the_kernels(dev, linear, launches):
+    """The dynamic convnet: the six convs through K1 with the bf16 store, the
+    fc layers through K2 (or K1 with the per-row scale and f32 store); the
+    logits are the plain-version forward's bits."""
     params, state = convnet.init(torch.Generator().manual_seed(0), device=dev)
     q, qs = dynamic.quantize(params, state)
     x = torch.randn((16, 32, 32, 3), generator=torch.Generator().manual_seed(1)).to(dev)
+    flags = Flags(dynamic_linear=linear)
     int8_gemm.launches = fused_dynamic_gemm.launches = 0
-    got, _ = convnet.apply(q, qs, x)
-    assert (int8_gemm.launches, fused_dynamic_gemm.launches) == (6, 2)
-    ref, _ = convnet.apply(q, qs, x, flags=Flags(plain=True))
-    torch.testing.assert_close(got, ref, rtol=0, atol=1e-3 * ref.abs().max().item())
+    got, _ = convnet.apply(q, qs, x, flags=flags)
+    assert (int8_gemm.launches, fused_dynamic_gemm.launches) == launches
+    ref, _ = convnet.apply(q, qs, x, flags=Flags(dynamic_linear=linear, plain=True))
+    assert torch.equal(got, ref)
 
 
 # The JAX test shapes, odd shapes off the 16-element vector step, and
@@ -102,10 +180,11 @@ def test_static_resnet18_goes_through_the_kernels(dev):
     x = torch.randn((4, 64, 64, 3), generator=torch.Generator().manual_seed(2)).to(dev)
     int8_gemm.launches = residual_boundary.launches = 0
     got, _ = resnet.apply(q, qs, x)
-    # 19 int8 convs (the stem stays fp32) + fc; 7 of 8 blocks hand int8 on.
+    # 19 int8 convs (the stem stays fp32) + fc, each one fused K1 launch
+    # storing the layer's own output type; 7 of 8 blocks hand int8 on.
     assert (int8_gemm.launches, residual_boundary.launches) == (20, 7)
     ref, _ = resnet.apply(q, qs, x, flags=Flags(plain=True))
-    torch.testing.assert_close(got, ref, rtol=0, atol=1e-3 * ref.abs().max().item())
+    assert torch.equal(got, ref)
 
 
 def test_fp32_conv_keeps_f32_and_restores_cudnn_flags(dev):

@@ -23,6 +23,7 @@ from quantnet_torch.core.types import QTensor
 from quantnet_torch.ops import conv as tconv
 from quantnet_torch.ops import layers as tlayers
 from quantnet_torch.ops import linear as tlinear
+from test_torch_convnet import jit_unfused
 
 
 def _rng(seed):
@@ -115,12 +116,14 @@ def _backend(monkeypatch, matmul, conv):
 @pytest.mark.parametrize("in_dtype", ["float32", "bfloat16"])
 def test_dynamic_conv2d_bit_exact(monkeypatch, backend, in_dtype):
     """Per-tensor quant, int8 conv, f32 epilogue, relu, bf16 handoff: the same
-    bits as the JAX package on either exact int8 backend."""
+    bits as the JAX package, jitted as it runs (the activation scale's
+    / 127 is a multiply by f32(1 / 127) there), on either exact int8 backend."""
     _backend(monkeypatch, *backend)
     jlayer, tlayer = _dynamic_layer((3, 3, 8, 16), 7)
     x = _rng(8).standard_normal((2, 6, 6, 8)).astype(np.float32)
     with pltpu.force_tpu_interpret_mode():
-        ref = jconv.conv2d(jlayer, jnp.asarray(x).astype(in_dtype), activation="relu")
+        ref = jit_unfused(lambda layer, xx: jconv.conv2d(layer, xx, activation="relu"),
+                          jlayer, jnp.asarray(x).astype(in_dtype))
     got = tconv.conv2d(tlayer, torch.from_numpy(x).to(getattr(torch, in_dtype)), activation="relu")
     assert got.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref.astype(jnp.float32)))

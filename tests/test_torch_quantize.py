@@ -13,6 +13,9 @@ from quantnet_torch.core import quantize as tq
 from quantnet_torch.core.types import DynamicActQuant, QTensor
 
 SHAPES = [(7, 33), (64, 1024), (2, 8, 8, 16)]
+# The JAX package runs its forward under jit, where XLA takes amax / 127 as a
+# multiply by f32(1 / 127); the port's runtime scale does the same.
+jit_dynamic_quantize = jax.jit(jq.dynamic_quantize, static_argnames="axis")
 
 
 def _x(shape, seed, scale=3.0):
@@ -25,7 +28,7 @@ def test_dynamic_quantize_per_tensor_bit_exact(shape, dtype):
     x = _x(shape, 0)
     jx = jnp.asarray(x).astype(dtype)
     tx = torch.from_numpy(x).to(getattr(torch, dtype))
-    jv, js = jq.dynamic_quantize(jx, axis=None)
+    jv, js = jit_dynamic_quantize(jx, axis=None)
     tv, ts = tq.dynamic_quantize(tx, axis=None)
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
@@ -37,7 +40,7 @@ def test_dynamic_quantize_per_tensor_bit_exact(shape, dtype):
 def test_dynamic_quantize_per_row_bit_exact(shape, dtype):
     x = _x(shape, 1)
     x[0] = 0.0  # an all-zero row takes the EPS floor
-    jv, js = jq.dynamic_quantize(jnp.asarray(x).astype(dtype), axis=0)
+    jv, js = jit_dynamic_quantize(jnp.asarray(x).astype(dtype), axis=0)
     tv, ts = tq.dynamic_quantize(torch.from_numpy(x).to(getattr(torch, dtype)), axis=0)
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
@@ -89,7 +92,7 @@ def test_symmetric_scale_floors_at_eps():
     z = np.zeros((4, 5), np.float32)
     np.testing.assert_array_equal(
         tq.symmetric_scale(torch.from_numpy(z)).numpy(),
-        np.asarray(jq.symmetric_scale(jnp.asarray(z))),
+        np.asarray(jax.jit(jq.symmetric_scale)(jnp.asarray(z))),
     )
     assert tq.EPS == jq.EPS and tq.SYM_MAX == jq.SYM_MAX
     assert tq.sym_max(8) == jq.sym_max(8) == 127.0 and tq.sym_max(4) == 7.0

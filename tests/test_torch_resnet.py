@@ -11,6 +11,8 @@ Bounds: every int8 tensor that a layer receives (the capture dicts) is the
 same bits, and so are the logits: at 32x32 the global average pool takes one
 value per channel, so no float-order difference enters before the fc.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +31,7 @@ from quantnet_torch.core.types import ActQuant, QTensor
 from quantnet_torch.entry import resnet_entry
 from quantnet_torch.models import resnet as tresnet
 from quantnet_torch.ops.int8_matmul import int8_gemm
+from quantnet_torch.ops.linear import GemmConstants
 from quantnet_torch.ops.residual_boundary import residual_boundary
 from quantnet_torch.quantize import fold as tfold
 from quantnet_torch.quantize import static as tstatic
@@ -150,7 +153,7 @@ def test_bake_matches_jax_bit_for_bit(models):
     tq, _ = tstatic.bake(_carried(m["jf"]), {}, act, skip_first_layer=True)
     ref = interop.from_jax_qparams(jax.tree.map(np.asarray, m["baked"][True]), device="cpu")
     n = _assert_trees_equal(tq, ref)
-    assert n == 53 * 4  # w, aq, wsum and b of every quantized layer
+    assert n == 53 * 5  # w, aq, wsum, b and the GEMM constants of every quantized layer
 
 
 def _assert_trees_equal(a, b, path=""):
@@ -165,6 +168,11 @@ def _assert_trees_equal(a, b, path=""):
             n += 1
         elif isinstance(x, ActQuant):
             assert torch.equal(x.scale, y.scale) and torch.equal(x.zero_point, y.zero_point), p
+            n += 1
+        elif isinstance(x, GemmConstants):
+            for f in dataclasses.fields(x):
+                u, v = getattr(x, f.name), getattr(y, f.name)
+                assert (u is None and v is None) or torch.equal(u, v), f"{p}.{f.name}"
             n += 1
         else:
             assert torch.equal(x, y), p
