@@ -40,10 +40,12 @@ SIGNATURES = {
     "int8_gemm": (
         "int8_gemm", [_P, _P, _P, _I64, _I64, _I64, _I64, _C, _P, _P, _P, _P, _C, _F, _F, _P],
     ),
-    # fused_dynamic_gemm(x[M,K] f32 or bf16, w[N,K] s8, w_scale[N], bias[N],
-    #                    out[M,N] f32, M, N, K, block_k, x_is_bf16, stream)
+    # fused_dynamic_gemm(x[M,K] f32 or bf16, w[N,ldw] s8, w_scale[N], bias[N],
+    #                    out[M,N] f32, M, N, K, ldw, block_k, x_is_bf16, relu,
+    #                    workspace, stream)
     "fused_dynamic_gemm": (
-        "fused_dynamic_gemm", [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
+        "fused_dynamic_gemm",
+        [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P],
     ),
     # residual_boundary(out[n] f32, identity[n] s8 or f32, q[n] s8, n,
     #                   int8_identity, id_scale, id_zero_point, out_scale,

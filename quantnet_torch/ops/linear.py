@@ -4,7 +4,8 @@ quantnet/ops/linear.py:93-226).
 Three paths, picked by the layer's leaves:
 
   fp32/bf16    w: Tensor                  -> x @ w + b
-  dynamic PTQ  w: QTensor, aq dynamic     -> fused kernel, or per-row quant +
+  dynamic PTQ  w: QTensor, aq dynamic     -> fused kernel with the relu in
+                                             its store, or per-row quant +
                                              int8 GEMM kernel with the
                                              epilogue fused into its store
   static PTQ   w: QTensor, aq ActQuant    -> frozen affine quant, int8 GEMM
@@ -190,8 +191,8 @@ def linear(
             gemm = fused_dynamic_gemm_plain if flags.plain else fused_dynamic_gemm
             g = _constants(layer)
             bias = g.bias if g.bias is not None else torch.zeros((n,), device=x.device)
-            y = gemm(x.contiguous(), g.w_nk, g.w_scale, bias)
-            return maybe_requantize(apply_act(y, activation), out_quant)
+            y = gemm(x.contiguous(), g.w_nk, g.w_scale, bias, relu_flag(activation))
+            return maybe_requantize(y, out_quant)
 
         # Per-row symmetric activation quant, int8 GEMM, epilogue in the kernel.
         qx, x_scale = dynamic_quantize(x, axis=0)

@@ -13,7 +13,11 @@ from quantnet_torch.core.config import Flags
 from quantnet_torch.core.quantize import quantize_affine
 from quantnet_torch.core.types import ActQuant
 from quantnet_torch.models import convnet, resnet
-from quantnet_torch.ops.fused_dynamic_matmul import fused_dynamic_gemm, fused_dynamic_gemm_plain
+from quantnet_torch.ops.fused_dynamic_matmul import (
+    fused_dynamic_cases,
+    fused_dynamic_gemm,
+    fused_dynamic_gemm_plain,
+)
 from quantnet_torch.ops.int8_matmul import (
     Epilogue,
     int8_gemm,
@@ -62,17 +66,50 @@ def test_int8_gemm_exact(dev, m, k, n):
     assert torch.equal(got, int8_gemm_plain(a, b))
 
 
+# K2 at the convnet's fc1 and fc2 (the bench's batch, the serving batch and
+# one row), and ragged shapes: M off the 64-row tile, K off the 128-wide step
+# and past 8 K-blocks, N off every width (10, 130) and past one 512-wide tile.
+FUSED_SHAPES = [(1024, 4096, 512), (1024, 512, 10), (32, 4096, 512), (32, 512, 10), (1, 4096, 512),
+                (1, 512, 10), (7, 600, 10), (33, 100, 130), (65, 4224, 520), (129, 600, 130),
+                (7, 4224, 10), (33, 100, 520), (65, 600, 10), (129, 4224, 130)]
+
+
+def _bits_equal(got, ref):
+    """The same f32 bits (compared as integers, so -0 and +0 count as different)."""
+    return torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("relu", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n", [(1024, 4096, 512), (1024, 512, 10), (7, 600, 10), (33, 100, 130)])
-def test_fused_dynamic_gemm_matches_plain(dev, m, k, n, dtype):
+@pytest.mark.parametrize("m,k,n", FUSED_SHAPES)
+def test_fused_dynamic_gemm_matches_plain(dev, m, k, n, dtype, relu):
     g = torch.Generator(device=dev).manual_seed(m + k + n)
     x = torch.randn((m, k), generator=g, device=dev).to(dtype)
     w = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
     ws = torch.rand((n,), generator=g, device=dev) * 1e-2
     b = torch.randn((n,), generator=g, device=dev)
-    got = fused_dynamic_gemm(x, w, ws, b)
+    before = fused_dynamic_gemm.launches
+    got = fused_dynamic_gemm(x, w, ws, b, relu)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, fused_dynamic_gemm_plain(x, w, ws, b), rtol=1e-5, atol=1e-4)
+    assert fused_dynamic_gemm.launches == before + 1
+    assert _bits_equal(got, fused_dynamic_gemm_plain(x, w, ws, b, relu))
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(64, 4096, 512), (96, 1024, 10), (33, 600, 130)])
+def test_fused_dynamic_gemm_ties_and_eps_floor(dev, m, k, n, dtype, relu):
+    """The kernel's quantize (its fast division among it) on x at the
+    rounding ties of x / s, under the 1e-8 floor of the scale, subnormal,
+    zero, past the fast division's range and over every bf16 exponent."""
+    g = torch.Generator(device=dev).manual_seed(m * k + n)
+    x = fused_dynamic_cases(m, k, dtype, dev)
+    w = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+    ws = torch.rand((n,), generator=g, device=dev) * 1e-2 + 1e-4
+    b = torch.randn((n,), generator=g, device=dev)
+    got = fused_dynamic_gemm(x, w, ws, b, relu)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, fused_dynamic_gemm_plain(x, w, ws, b, relu))
 
 
 def _epilogues(dev, g, m, n):
@@ -133,14 +170,16 @@ def test_wrapper_rejects_non_contiguous(dev):
         int8_gemm(a[:, ::2], a[:, ::2].contiguous())
 
 
+@pytest.mark.parametrize("batch", [1024, 32])
 @pytest.mark.parametrize("linear,launches", [("fused", (6, 2)), ("unfused", (8, 0))])
-def test_model_goes_through_the_kernels(dev, linear, launches):
-    """The dynamic convnet: the six convs through K1 with the bf16 store, the
-    fc layers through K2 (or K1 with the per-row scale and f32 store); the
+def test_model_goes_through_the_kernels(dev, linear, launches, batch):
+    """The dynamic convnet at the bench's and the serving batch: the six
+    convs through K1 with the bf16 store, the fc layers through K2 with fc1's
+    relu in its store (or K1 with the per-row scale and f32 store); the
     logits are the plain-version forward's bits."""
     params, state = convnet.init(torch.Generator().manual_seed(0), device=dev)
     q, qs = dynamic.quantize(params, state)
-    x = torch.randn((16, 32, 32, 3), generator=torch.Generator().manual_seed(1)).to(dev)
+    x = torch.randn((batch, 32, 32, 3), generator=torch.Generator().manual_seed(1)).to(dev)
     flags = Flags(dynamic_linear=linear)
     int8_gemm.launches = fused_dynamic_gemm.launches = 0
     got, _ = convnet.apply(q, qs, x, flags=flags)

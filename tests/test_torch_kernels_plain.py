@@ -141,7 +141,7 @@ def test_build_names_library_by_source_hash(tmp_path, monkeypatch):
     before = _build._library_path("int8_gemm")
     assert before.parent == _build.BUILD_DIR and before.suffix == ".so"
     assert _build._library_path("int8_gemm") == before
-    (tmp_path / "mma_s8.cuh").write_text("// edited\n")
+    (tmp_path / "wgmma_s8.cuh").write_text("// edited\n")
     assert _build._library_path("int8_gemm") != before
 
 
