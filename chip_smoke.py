@@ -3,22 +3,25 @@
 
     python3 chip_smoke.py
 
-Two paths are driven: the dynamic-INT8 SimpleConvNet at bs1024 (K1 int8_gemm
+Three paths are driven: the dynamic-INT8 SimpleConvNet at bs1024 (K1 int8_gemm
 through im2col with the bf16 handoff fused into its store, K2
-fused_dynamic_gemm with fc1's relu fused into its store) and the static-INT8
-ResNet-50 at bs128, 224x224 (K1 at 52 convs and the fc, storing int8 or f32,
-K3 residual_boundary at 15 block boundaries). Phases, each printing one line with its wall time:
+fused_dynamic_gemm with fc1's relu fused into its store), its static-INT8
+sibling at bs1024 (fp32 stem, K1 at conv2-conv6 and fc1 storing int8 in the
+next layer's domain and at fc2 storing f32) and the static-INT8 ResNet-50 at
+bs128, 224x224 (K1 at 52 convs and the fc, storing int8 or f32, K3
+residual_boundary at 15 block boundaries). Then the convnet's scheme matrix
+and the port's bench script. Phases, each printing one line with its wall time:
   1. device     the card's name and power limit (nvidia-smi); no card -> exit 1
   2. build      nvcc builds every kernel (quantnet_torch/_build.py), in
                 parallel; ptxas's registers, spills and static shared memory
                 of each kernel (K1: per template variant)
   3. int8_gemm  K1's int32 store (the TPU kernel's function) against its plain
-                version, exact, at the reference test shapes, the six conv GEMM
-                shapes of the convnet at bs1024 and every distinct GEMM shape of
+                version, exact, at the reference test shapes, the GEMM shapes
+                of both convnets at bs1024 and every distinct GEMM shape of
                 ResNet-50 at bs128
   4. k1 stores  one forward of each model with every K1 launch held against
                 int8_gemm_epilogue_plain on the same inputs, bit for bit: each
-                store (bf16, int8, f32) at every shape of both paths
+                store (bf16, int8, f32) at every shape of the three paths
   5. fused      K2 bit-equal to its plain version at fc1 and fc2, at bs1024 and
                 bs32, f32 and bf16 x, relu on and off, on random x and on x
                 at the quantize's rounding ties, its 1e-8 floor, subnormals
@@ -29,19 +32,31 @@ K3 residual_boundary at 15 block boundaries). Phases, each printing one line wit
   7. times      each kernel at its main-path shapes (CUDA events around
                 back-to-back calls), summed over one forward, beside its bound,
                 its plain version and, where one PyTorch call computes the
-                same, that call; K1 twice: its int32 store beside
-                torch._int_mm, and as each path launches it beside the unfused
+                same, that call; K1 twice per path: its int32 store beside
+                torch._int_mm, and as the path launches it beside the unfused
                 route it replaced (the int32 store, then the epilogue in
                 PyTorch ops); K2 at bs1024 and bs32, on random inputs and on
                 the forward's own fc1 / fc2 inputs; and the host's cost of
                 one K1 and one K2 launch beside one torch._int_mm call
   8. convnet    init -> BN fold -> dynamic INT8 -> forward at bs1024; launch
                 counts, agreement with the plain versions and fp32, throughput
-  9. resnet50   init -> BN fold -> min-max calibration (32 images) -> static
+  9. static     init -> BN fold -> min-max calibration (32 images) -> static
+                INT8 bake (fp32 stem) -> forward at bs1024; launch counts,
+                agreement with the plain versions and fp32, throughput and
+                roofline
+ 10. resnet50   init -> BN fold -> min-max calibration (32 images) -> static
                 INT8 bake (fp32 stem) -> forward at bs128; launch counts,
                 agreement with the plain versions and fp32, throughput
- 10. kernels    one JSON line with an entry per kernel and path it runs on
-                (K1 twice: the convnet's and ResNet-50's), each with its numbers
+ 11. schemes    fp32, dynamic, static, weight-only int8 and int4 (fc1 at g128)
+                and bf16 from the same weights: each saved and loaded as an
+                artifact (logits bit-equal after the round trip), scored by
+                the evaluator on the synthetic CIFAR-10 test split (its counts
+                held against the host's), its predictions held against
+                fp32's, and benched at bs1 and bs32 (size, p50, mfu, memory)
+ 12. bench_torch  bench_torch.py's measurement in this process, its lines
+ 13. kernels    one JSON line with an entry per kernel and path it runs on
+                (K1 three times: each convnet's and ResNet-50's), each with
+                its numbers
 Any failed check raises before the last line, which is the only place that
 prints {"ok": true, ...}. Nothing is written outside build/ (gitignored).
 """
@@ -95,6 +110,21 @@ FP32_REL_L2_MAX = 0.1
 # A CPU rehearsal of this very configuration (seed 0 weights, 32 calibration
 # images, bs16 at 224x224) measured 0.0176; the bound leaves about 3x.
 RESNET_FP32_REL_L2_MAX = 0.05
+# Static INT8 convnet against its fp32 folded model, relative L2 of the
+# logits (seed 0 weights, 32 calibration images, fp32 stem): a CPU rehearsal
+# of this configuration at bs16 measured 0.0203; the bound leaves about 3x.
+STATIC_FP32_REL_L2_MAX = 0.06
+# The scheme matrix on the synthetic CIFAR-10 test split (2560 images): with
+# random weights top-1 is chance, so each quantized scheme is held to the
+# share of its predictions that equal fp32's. A CPU rehearsal of the same
+# weights and split measured dynamic 0.9824, static 0.9797, weight_only
+# 0.9918, weight_only_int4 0.8395 and bf16 0.9965; the floors leave 2-4 points.
+SCHEME_AGREEMENT_MIN = {"dynamic": 0.95, "static": 0.95, "weight_only": 0.97,
+                        "weight_only_int4": 0.80, "bf16": 0.97}
+SCHEME_BATCHES = (1, 32)
+# K1's GEMMs on the static convnet beyond the dynamic one's convs (conv2-conv6
+# are the same shapes): fc1 and fc2 at bs1024.
+STATIC_FC_SHAPES = [("static_fc1", 1024, 4096, 512), ("static_fc2", 1024, 512, 10)]
 
 
 class SmokeFailure(RuntimeError):
@@ -220,9 +250,10 @@ def int8_gemm_phase(torch, dev):
     g = torch.Generator(device=dev).manual_seed(SEED)
     gemms, _ = resnet_shapes(RESNET_BATCH, RESNET_IMAGE)
     shapes = [("convnet",) + s for s in REFERENCE_SHAPES + CONV_SHAPES] + [
+        ("convnet_static",) + s for s in STATIC_FC_SHAPES] + [
         ("resnet50", f"resnet50_{m}x{k}x{n}", m, k, n) for m, k, n in sorted(gemms)
     ]
-    err = {"convnet": 0.0, "resnet50": 0.0}
+    err = {"convnet": 0.0, "convnet_static": 0.0, "resnet50": 0.0}
     for path, name, m, k, n in shapes:
         a = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
         b = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
@@ -250,6 +281,7 @@ def int8_gemm_phase(torch, dev):
         bad = int((requantize(y, aq) != quantize_affine(y, aq.scale, aq.zero_point)).sum())
         check(bad == 0, f"int8 requantize, scale {scale}: {bad} of {y.numel()} differ from quantize_affine")
         n_div += y.numel()
+    err["convnet_static"] = max(err["convnet_static"], err["convnet"])  # conv2-conv6 shared
     phase("int8_gemm", t0, f"int32 store exact against int8_gemm_plain at {len(shapes)} shapes "
           f"({len(gemms)} of them ResNet-50's at bs{RESNET_BATCH}); the int8 store's division "
           f"bit-equal to quantize_affine on {n_div} inputs in {len(REQUANTIZE_DOMAINS)} domains")
@@ -436,8 +468,8 @@ def times_phase(torch, dev, k1_calls, models):
 
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
-    k1_int32 = {"convnet": _sums(), "resnet50": _sums()}
-    k1 = {"convnet": _sums(), "resnet50": _sums()}
+    k1_int32 = {path: _sums() for path in k1_calls}
+    k1 = {path: _sums() for path in k1_calls}
     k2 = {batch: _sums() for batch in FC_BATCHES}
     k2_own = {batch: 0.0 for batch in FC_BATCHES}
     k3 = _sums()
@@ -445,6 +477,8 @@ def times_phase(torch, dev, k1_calls, models):
     # The int32 store at the K the kernel runs (conv1's 27 padded to 32;
     # the padded bytes count in the bound).
     int32_shapes = [("convnet", 1, m, -(-k // 16) * 16, n, 30) for _, m, k, n in CONV_SHAPES] + [
+        ("convnet_static", count, m, k, n, 30)
+        for (m, k, n, _), (count, *_) in sorted(k1_calls["convnet_static"].items())] + [
         ("resnet50", count, m, k, n, 30) for (m, k, n), count in sorted(gemms.items())]
     for path, count, m, k, n, iters in int32_shapes:
         ms, plain, lib = _time_int8_gemm(torch, dev, g, m, k, n, iters)
@@ -520,10 +554,14 @@ def times_phase(torch, dev, k1_calls, models):
 
 
 def build_models(torch, dev):
-    """Both paths' models as a user builds them, from seeds: the dynamic-INT8
-    convnet (init -> BN fold -> dynamic quantize) with a bs1024 batch, and the
-    static-INT8 ResNet-50 (init -> BN fold -> min-max calibration on 32
-    images -> bake, fp32 stem) with a bs128 batch at 224x224."""
+    """The three paths' models as a user builds them, from seeds: the
+    dynamic-INT8 convnet (init -> BN fold -> dynamic quantize) with a bs1024
+    batch; its static-INT8 sibling (the same weights, BN fold -> min-max
+    calibration on 32 images -> bake, fp32 stem) with a bs1024 batch, as
+    quantnet_torch.entry.static_entry builds it; and the static-INT8
+    ResNet-50 (init -> BN fold -> min-max calibration on 32 images -> bake,
+    fp32 stem) with a bs128 batch at 224x224."""
+    from quantnet_torch.entry import static_entry
     from quantnet_torch.models import convnet, resnet
     from quantnet_torch.quantize import dynamic, static
 
@@ -533,6 +571,9 @@ def build_models(torch, dev):
     x = torch.randn((BATCH, 32, 32, 3), generator=torch.Generator().manual_seed(SEED + 1)).to(dev)
     models = {"convnet": dict(apply=convnet.apply, params=params, state=state, q=qparams,
                               qs=qstate, x=x)}
+    _, (sq, sqs, sx) = static_entry(dev, batch_size=BATCH, calibration_size=RESNET_CALIBRATION,
+                                    seed=SEED)
+    models["convnet_static"] = dict(apply=convnet.apply, params=params, state=state, q=sq, qs=sqs, x=sx)
     t1 = time.perf_counter()
     params, state = resnet.init(torch.Generator().manual_seed(SEED), depth=50, device=dev)
     shape = (RESNET_CALIBRATION, RESNET_IMAGE, RESNET_IMAGE, 3)
@@ -543,7 +584,7 @@ def build_models(torch, dev):
     torch.cuda.synchronize()
     models["resnet50"] = dict(apply=resnet.apply, params=params, state=state, q=qparams,
                               qs=qstate, x=x, set_up_s=time.perf_counter() - t1)
-    phase("models", t0, f"convnet bs{BATCH}, resnet50 bs{RESNET_BATCH} {RESNET_IMAGE}x"
+    phase("models", t0, f"convnet and convnet_static bs{BATCH}, resnet50 bs{RESNET_BATCH} {RESNET_IMAGE}x"
           f"{RESNET_IMAGE} (set-up {models['resnet50']['set_up_s']:.2f} s)")
     return models
 
@@ -586,11 +627,11 @@ def k1_stores_phase(torch, models):
             found[path] = calls
     finally:
         ops_linear.int8_gemm_epilogue = int8_gemm_epilogue
-    n = {p: sum(c[0] for c in v.values()) for p, v in found.items()}
-    kinds = {p: sorted({k[3] for k in v}) for p, v in found.items()}
+    per_path = "; ".join(
+        f"{p} {sum(c[0] for c in v.values())} launches at {len(v)} shapes "
+        f"({', '.join(sorted({k[3] for k in v}))})" for p, v in found.items())
     phase("k1 stores", t0, f"every K1 launch of a forward bit-equal to int8_gemm_epilogue_plain: "
-          f"convnet {n['convnet']} launches at {len(found['convnet'])} shapes ({', '.join(kinds['convnet'])}), "
-          f"resnet50 {n['resnet50']} at {len(found['resnet50'])} ({', '.join(kinds['resnet50'])})")
+          f"{per_path}")
     return found
 
 
@@ -707,6 +748,170 @@ def resnet_phase(torch, dev, m):
     return launches
 
 
+def _roofline(stats) -> str:
+    mfu = stats.get("mfu")
+    return (f"{stats['model_gops']:.4f} GOP, {stats['achieved_tops']:.4f} TOP/s, mfu "
+            f"{'n/a' if mfu is None else format(mfu, '.6f')}")
+
+
+def static_phase(torch, dev, m):
+    """The convnet's static-INT8 sibling at bs1024: every layer after the
+    fp32 stem hands int8 to the next in its frozen domain, seven K1 launches
+    (conv2-conv6 and fc1 storing int8, fc2 storing f32)."""
+    from quantnet_torch.bench.benchmark import InferenceBenchmark
+    from quantnet_torch.core.config import Flags
+    from quantnet_torch.models import convnet
+    from quantnet_torch.ops.fused_dynamic_matmul import fused_dynamic_gemm
+    from quantnet_torch.ops.int8_matmul import int8_gemm
+    from quantnet_torch.ops.residual_boundary import residual_boundary
+    from quantnet_torch.quantize import fold
+
+    t0 = time.perf_counter()
+    params, state, qparams, qstate, x = m["params"], m["state"], m["q"], m["qs"], m["x"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    int8_gemm.launches = residual_boundary.launches = fused_dynamic_gemm.launches = 0
+    logits, _ = convnet.apply(qparams, qstate, x)
+    torch.cuda.synchronize()
+    launches = {"int8_gemm": int8_gemm.launches, "fused_dynamic_gemm": fused_dynamic_gemm.launches,
+                "residual_boundary": residual_boundary.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    check(tuple(logits.shape) == (BATCH, 10), f"logits shape {tuple(logits.shape)}")
+    check(logits.dtype == torch.float32, f"logits dtype {logits.dtype}")
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    check(launches == {"int8_gemm": 7, "fused_dynamic_gemm": 0, "residual_boundary": 0},
+          f"launches per forward {launches}, expected 7 int8_gemm and nothing else")
+    ref, _ = convnet.apply(qparams, qstate, x, flags=Flags(plain=True))
+    scale = ref.abs().max().item()
+    err = (logits - ref).abs().max().item()
+    check(torch.equal(logits.view(torch.int32), ref.view(torch.int32)),
+          f"static convnet vs plain versions: max |diff| {err} (max|logit| {scale}), not bit-equal")
+    fparams, fstate = fold.fold_model(params, state)
+    fp32, _ = convnet.apply(fparams, fstate, x)
+    rel = ((logits - fp32).norm() / fp32.norm()).item()
+    agree = (logits.argmax(1) == fp32.argmax(1)).float().mean().item()
+    check(rel < STATIC_FP32_REL_L2_MAX,
+          f"static INT8 convnet vs fp32 logits: relative L2 {rel} >= {STATIC_FP32_REL_L2_MAX}")
+    phase("static", t0, f"logits {tuple(logits.shape)} finite; launches {launches}; max |kernels - "
+          f"plain| {err!r} (max|logit| {scale:.4f}, bit-equal); vs fp32: rel L2 {rel:.4f}, top-1 "
+          f"agreement {agree:.4f}; peak {peak_gib:.2f} GiB")
+
+    t1 = time.perf_counter()
+    stats = InferenceBenchmark(warmup=10, iters=50).measure(convnet.apply, qparams, qstate, BATCH)
+    phase("static bench", t1, f"bs{BATCH}: p50 {stats['p50_ms']:.4f} ms, "
+          f"{stats['images_per_s_p50']:.1f} img/s (mean {stats['mean_ms']:.4f} ms, min "
+          f"{stats['min_ms']:.4f}, max {stats['max_ms']:.4f}, {stats['iters']} iters); "
+          f"{_roofline(stats)} on {stats['device']}")
+    return launches
+
+
+def _host_counts(logits: list, labels, top_k: int = 5):
+    """Top-1 and top-k hits counted on the host from the logits' bits."""
+    import numpy as np
+
+    lg = np.concatenate([t.float().cpu().numpy() for t in logits])
+    top1 = int((lg.argmax(1) == labels).sum())
+    order = np.argsort(-lg, axis=1, kind="stable")[:, :top_k]
+    topk = int((order == labels[:, None]).any(1).sum())
+    return lg.argmax(1), top1, topk
+
+
+def schemes_phase(torch, dev, models):
+    """The convnet's scheme matrix from the same seeded weights: artifacts
+    round-tripped, scored by the evaluator, held against fp32, benched."""
+    import pathlib
+    import tempfile
+
+    from quantnet_torch.bench.benchmark import InferenceBenchmark
+    from quantnet_torch.data.datasets import load_cifar10
+    from quantnet_torch.evaluation.evaluator import compare_models
+    from quantnet_torch.models import convnet
+    from quantnet_torch.quantize import bf16, weight_only
+    from quantnet_torch.train.checkpoint import load_artifact, save_artifact
+
+    t0 = time.perf_counter()
+    params, state = models["convnet"]["params"], models["convnet"]["state"]
+    trees = {
+        "fp32": (params, state),
+        "dynamic": (models["convnet"]["q"], models["convnet"]["qs"]),
+        "static": (models["convnet_static"]["q"], models["convnet_static"]["qs"]),
+        "weight_only": weight_only.quantize(params, state),
+        "weight_only_int4": weight_only.quantize(params, state, bits=4, group_size=128),
+        "bf16": bf16.quantize(params, state),
+    }
+    x = models["convnet"]["x"][:256]
+    build = pathlib.Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    loaded = {}
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        for name, (q, qs) in trees.items():
+            before, _ = convnet.apply(q, qs, x)
+            path = str(pathlib.Path(tmp) / name)
+            save_artifact(path, {"params": q, "state": qs}, {"model": "simple_convnet", "scheme": name})
+            tree, meta = load_artifact(path, device=dev)
+            after, _ = convnet.apply(tree["params"], tree["state"], x)
+            check(meta["scheme"] == name and torch.equal(before.view(torch.int32), after.view(torch.int32)),
+                  f"{name}: logits after the artifact round trip differ, max |diff| "
+                  f"{(before - after).abs().max().item()!r}")
+            loaded[name] = (tree["params"], tree["state"])
+    phase("artifacts", t0, f"{len(loaded)} schemes saved and loaded, logits bit-equal after the round trip")
+
+    t1 = time.perf_counter()
+    _, test = load_cifar10("./data", synthetic_train_size=1)
+    scores = compare_models({n: (convnet.apply, q, qs) for n, (q, qs) in loaded.items()}, test,
+                            batch_size=512, device=dev)
+    preds = {}
+    for name, (q, qs) in loaded.items():
+        logits = [convnet.apply(q, qs, torch.from_numpy(test.images[i:i + 512]).to(dev))[0]
+                  for i in range(0, len(test), 512)]
+        preds[name], top1, top5 = _host_counts(logits, test.labels)
+        r = scores[name]
+        check(r["n"] == len(test) and r["top1"] == top1 / len(test) and r["top5"] == top5 / len(test),
+              f"{name}: evaluator top-1 {r['top1']} / top-5 {r['top5']} over {r['n']}, the host counts "
+              f"{top1} / {top5} of {len(test)}")
+    agreement = {n: float((p == preds["fp32"]).mean()) for n, p in preds.items()}
+    for name, low in SCHEME_AGREEMENT_MIN.items():
+        check(agreement[name] >= low, f"{name}: predictions agree with fp32 on {agreement[name]:.4f} "
+              f"of the split, below {low}")
+    phase("evaluator", t1, f"{test.name} ({len(test)} images): evaluator counts equal the host's for "
+          f"every scheme; agreement with fp32 {', '.join(f'{n} {a:.4f}' for n, a in agreement.items())}")
+
+    t2 = time.perf_counter()
+    bench = InferenceBenchmark(warmup=5, iters=30)
+    for name, (q, qs) in loaded.items():
+        torch.cuda.reset_peak_memory_stats()
+        res = bench.compare_models({name: (convnet.apply, q, qs)}, batch_sizes=SCHEME_BATCHES)[name]
+        r = scores[name]
+        b1, b32 = res["bs1"], res["bs32"]
+        print(f"  scheme {name}: top-1 {r['top1']:.4f}, top-5 {r['top5']:.4f}, agreement with fp32 "
+              f"{agreement[name]:.4f}; size {res['model_size_mb']:.4f} MB; bs1 p50 {b1['p50_ms']:.4f} ms, "
+              f"bs32 p50 {b32['p50_ms']:.4f} ms ({b32['images_per_s_p50']:.1f} img/s), mfu bs32 "
+              f"{b32.get('mfu', float('nan')):.6f}; peak {res['device_memory']['peak_mb_in_use']:.1f} MB "
+              f"in use", flush=True)
+    phase("schemes", t2, f"{len(loaded)} schemes benched at bs{' and bs'.join(map(str, SCHEME_BATCHES))}")
+
+
+def bench_torch_phase():
+    """bench_torch.py's measurement, run in this process; its lines printed."""
+    import contextlib
+    import io
+
+    import bench_torch
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench_torch.main()
+    lines = out.getvalue().strip().splitlines()
+    result = json.loads(lines[-1])
+    check(rc == 0 and result["metric"] == bench_torch.METRIC and result["value"] > 0,
+          f"bench_torch: rc {rc}, {lines[-1]}")
+    phase("bench_torch", t0, f"roofline {lines[0]}")
+    print(lines[-1], flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -721,7 +926,10 @@ def main() -> int:
     k1_int32, k1, k2, k3 = times_phase(torch, dev, k1_calls, models)
     del k1_calls
     convnet_launches = main_path_phase(torch, dev, models["convnet"])
+    static_launches = static_phase(torch, dev, models["convnet_static"])
     resnet_launches = resnet_phase(torch, dev, models["resnet50"])
+    schemes_phase(torch, dev, models)
+    bench_torch_phase()
 
     def entry(kname, path, source, replaces, launches, err, sums, library):
         return {
@@ -753,17 +961,18 @@ def main() -> int:
         e.update({key: v for key, v in k2.items() if key not in _sums()})
         return e
 
-    # One entry per (kernel, path): K1 runs on both paths, at other shapes,
+    # One entry per (kernel, path): K1 runs on the three paths, at other shapes,
     # so each path's launches, times and bound stay comparable across runs.
     kernels = [
         k1_entry("convnet", convnet_launches["int8_gemm"]),
+        k1_entry("convnet_static", static_launches["int8_gemm"]),
         k1_entry("resnet50", resnet_launches["int8_gemm"]),
         k2_entry(convnet_launches["fused_dynamic_gemm"]),
         entry("residual_boundary", "resnet50", "residual_boundary.cu",
               "quantnet/ops/pallas_boundary.py:85", resnet_launches["residual_boundary"],
               boundary_err, k3, None),
     ]
-    print(f"kernels: int8_gemm exact (int32) and bit-equal (every store) on both paths; "
+    print(f"kernels: int8_gemm exact (int32) and bit-equal (every store) on the three paths; "
           f"fused_dynamic_gemm and residual_boundary bit-equal; no "
           "PyTorch call computes K1's fused store, K2 or K3 alone (library: none; "
           "int32_library_ms is torch._int_mm against K1's int32 store)")

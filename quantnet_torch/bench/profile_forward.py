@@ -1,11 +1,13 @@
 """Where the time of one forward goes, on the card.
 
     python -m quantnet_torch.bench.profile_forward [--batch 1024]
+    python -m quantnet_torch.bench.profile_forward --model convnet-static [--batch 1024]
     python -m quantnet_torch.bench.profile_forward --model resnet50 [--batch 128]
 
 --model convnet (the default) is the dynamic-INT8 SimpleConvNet at 32x32;
-resnet50 the static-INT8 ResNet-50 at 224x224 as quantnet_torch.entry.
-resnet_entry builds it (fp32 stem, min-max calibration on 32 images).
+convnet-static its static-INT8 sibling and resnet50 the static-INT8
+ResNet-50 at 224x224, as quantnet_torch.entry's static_entry and
+resnet_entry build them (fp32 stem, min-max calibration on 32 images).
 
 Traces five forwards after warm-up with torch.profiler (CPU and CUDA
 activity) and prints the device time of every kernel by name, the device's
@@ -25,12 +27,12 @@ ITERS = 5
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("convnet", "resnet50"), default="convnet")
-    ap.add_argument("--batch", type=int, default=None, help="1024 (convnet) or 128 (resnet50)")
+    ap.add_argument("--model", choices=("convnet", "convnet-static", "resnet50"), default="convnet")
+    ap.add_argument("--batch", type=int, default=None, help="1024 (convnets) or 128 (resnet50)")
     args = ap.parse_args(argv)
 
     from quantnet_torch.core.config import resolve_device
-    from quantnet_torch.entry import entry, resnet_entry
+    from quantnet_torch.entry import entry, resnet_entry, static_entry
 
     dev = resolve_device("cuda")
     card = subprocess.run(
@@ -40,6 +42,9 @@ def main(argv=None) -> int:
     if args.model == "resnet50":
         args.batch = args.batch or 128
         fn, (q, qs, x) = resnet_entry(dev, batch_size=args.batch)
+    elif args.model == "convnet-static":
+        args.batch = args.batch or 1024
+        fn, (q, qs, x) = static_entry(dev, batch_size=args.batch)
     else:
         args.batch = args.batch or 1024
         fn, (q, qs, x) = entry(dev, batch_size=args.batch)

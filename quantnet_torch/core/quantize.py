@@ -87,6 +87,22 @@ def quantize_symmetric(x: torch.Tensor, axis: Optional[int] = None, bits: int = 
     return QTensor(values=q.to(torch.int8), scale=scale, axis=axis, bits=bits)
 
 
+def quantize_symmetric_grouped(w: torch.Tensor, group_size: int, bits: int = 4) -> QTensor:
+    """Group-wise symmetric weight quantization along the reduction axis 0
+    (quantnet/core/quantize.py:74-100): the (K, ...) weight splits into
+    K // group_size row groups, each with its own absmax scale, shaped
+    (K // g, 1, ...). group_size must divide K."""
+    k = w.shape[0]
+    if k % group_size:
+        raise ValueError(f"group_size {group_size} must divide K={k}")
+    m = sym_max(bits)
+    g = w.float().reshape(k // group_size, group_size, *w.shape[1:])
+    amax = torch.amax(torch.abs(g), dim=1, keepdim=True)
+    scale = _mul_reciprocal(torch.clamp_min(amax, EPS), m)
+    q = torch.clamp(torch.round(g / scale), -m, m).reshape(w.shape)
+    return QTensor(values=q.to(torch.int8), scale=scale, bits=bits, group_size=group_size)
+
+
 def affine_qparams(xmin: torch.Tensor, xmax: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Asymmetric (f32 scale, int32 zero_point) covering [min(xmin, 0),
     max(xmax, 0)]: the range is widened to hold 0 exactly, so padding with

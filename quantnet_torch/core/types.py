@@ -25,9 +25,14 @@ class QTensor:
             HWIO conv weight).
     zero_point: optional int32 zero point; None means symmetric.
     axis:   channel axis of a per-channel scale, or None for per-tensor.
-    bits:   quantized bit width (values lie in [-2**(bits-1)+1, 2**(bits-1)-1]).
+    bits:   quantized bit width (values lie in [-2**(bits-1)+1, 2**(bits-1)-1]);
+            a 4-bit payload stays int8 at run time and is packed two to a
+            byte only on disk (quantnet_torch/train/checkpoint.py).
+    group_size: rows of the reduction axis 0 that share a scale, or None.
+            A grouped (K, N) weight has a (K // g, 1, N) scale.
 
-    Dequantization contract: ``(values - zero_point) * scale``.
+    Dequantization contract: ``(values - zero_point) * scale``, a grouped
+    scale broadcast over its group's rows.
     """
 
     values: torch.Tensor
@@ -35,6 +40,7 @@ class QTensor:
     zero_point: Optional[torch.Tensor] = None
     axis: Optional[int] = None
     bits: int = 8
+    group_size: Optional[int] = None
     _nk: Optional[torch.Tensor] = field(default=None, repr=False, compare=False)
 
     @property
@@ -49,7 +55,21 @@ class QTensor:
         v = self.values.to(dtype)
         if self.zero_point is not None:
             v = v - self.zero_point.to(dtype)
+        if self.group_size is not None:
+            shape = v.shape
+            v = v.reshape(-1, self.group_size, *shape[1:])
+            return (v * self.scale.to(dtype)).reshape(shape)
         return v * self.scale.to(dtype)
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes on disk: the payload packed to `bits` (two 4-bit values to
+        a byte), the scale and the zero point."""
+        n = -(-self.values.numel() * self.bits // 8)
+        n += self.scale.numel() * self.scale.element_size()
+        if self.zero_point is not None:
+            n += self.zero_point.numel() * self.zero_point.element_size()
+        return n
 
     def nk(self) -> torch.Tensor:
         """The weight as the GEMM kernels take it: int8[N, K], K contiguous.
@@ -101,3 +121,19 @@ class ActQuant:
         if self._host is None:
             self._host = (float(self.scale), float(self.zero_point))
         return self._host
+
+
+def tree_nbytes(tree) -> int:
+    """Model size: the bytes of every tensor of a params tree, a QTensor by
+    its packed `nbytes` (quantnet/core/types.py:263-279). The GEMM constants
+    under 'gemm' are a copy the kernels read, made where the tree is built,
+    not part of the model, and are left out."""
+    if isinstance(tree, QTensor):
+        return tree.nbytes
+    if isinstance(tree, ActQuant):
+        return tree_nbytes(tree.scale) + tree_nbytes(tree.zero_point)
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(tree_nbytes(v) for k, v in tree.items() if k != "gemm")
+    return 0

@@ -2,6 +2,7 @@
 one deployment, with its example inputs.
 
     fn, args = entry()          # dynamic-INT8 SimpleConvNet, bs32
+    fn, args = static_entry()   # static-INT8 SimpleConvNet, bs1024
     fn, args = resnet_entry()   # static-INT8 ResNet-50, bs128, 224x224
     logits = fn(*args)
 """
@@ -22,6 +23,35 @@ def entry(device="cuda", batch_size: int = 32):
     g = torch.Generator().manual_seed(1)
     x = torch.randn((batch_size, 32, 32, 3), generator=g).to(device)
     qparams, qstate = dynamic.quantize(params, state)
+
+    def fn(qparams, qstate, images):
+        logits, _ = convnet.apply(qparams, qstate, images)
+        return logits
+
+    return fn, (qparams, qstate, x)
+
+
+def static_entry(
+    device="cuda",
+    *,
+    batch_size: int = 1024,
+    calibration_size: int = 32,
+    skip_first_layer: bool = True,
+    seed: int = 0,
+):
+    """Returns (fn, (qparams, qstate, images)) for the static-INT8 sibling
+    of the convnet deployment: random weights from `seed`, BN folded, min-max
+    calibration on one seeded batch of `calibration_size` images, per-channel
+    int8 weights, every layer handing int8 to the next in its frozen domain,
+    the fp32 stem by default."""
+    device = resolve_device(device)
+    params, state = convnet.init(torch.Generator().manual_seed(seed), device=device)
+    shape = (calibration_size, 32, 32, 3)
+    calib = torch.randn(shape, generator=torch.Generator().manual_seed(seed + 1)).to(device)
+    qparams, qstate = static.quantize(
+        params, state, convnet.apply, [calib], skip_first_layer=skip_first_layer
+    )
+    x = torch.randn((batch_size, 32, 32, 3), generator=torch.Generator().manual_seed(seed + 2)).to(device)
 
     def fn(qparams, qstate, images):
         logits, _ = convnet.apply(qparams, qstate, images)

@@ -15,22 +15,20 @@ import torch
 
 from quantnet_torch.core.config import resolve_device
 from quantnet_torch.core.types import ActQuant, DynamicActQuant, QTensor
-from quantnet_torch.ops.linear import gemm_constants
+from quantnet_torch.ops.linear import with_gemm_constants
 
 
 def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # numpy has no bfloat16 of its own: widen, then narrow
+        return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
 def _convert(node, device):
     if isinstance(node, dict):
-        out = {k: _convert(v, device) for k, v in node.items()}
-        if isinstance(out.get("w"), QTensor) and isinstance(out.get("aq"), (ActQuant, DynamicActQuant)):
-            out["gemm"] = gemm_constants(out)  # the kernels' operands, made once here
-        return out
+        return {k: _convert(v, device) for k, v in node.items()}
     if hasattr(node, "values") and hasattr(node, "scale"):  # a QTensor
-        if getattr(node, "group_size", None) is not None:
-            raise NotImplementedError("group-wise QTensor weights come with a later slice")
         zp = getattr(node, "zero_point", None)
         return QTensor(
             values=_tensor(node.values, device),
@@ -38,6 +36,7 @@ def _convert(node, device):
             zero_point=None if zp is None else _tensor(zp, device),
             axis=node.axis,
             bits=node.bits,
+            group_size=getattr(node, "group_size", None),
         )
     if hasattr(node, "scale") and hasattr(node, "zero_point"):  # an ActQuant ('aq', 'oq')
         return ActQuant(scale=_tensor(node.scale, device), zero_point=_tensor(node.zero_point, device))
@@ -51,9 +50,10 @@ def _convert(node, device):
 def from_jax_params(params_np: dict, state_np: dict, *, device="cuda"):
     """fp32 (params, state) of the JAX package, as numpy -> the port's."""
     device = resolve_device(device)
-    return _convert(params_np, device), _convert(state_np, device)
+    return with_gemm_constants(_convert(params_np, device)), _convert(state_np, device)
 
 
 def from_jax_qparams(qparams_np: dict, *, device="cuda") -> dict:
     """A quantized params tree of the JAX package, as numpy -> the port's."""
-    return _convert(qparams_np, resolve_device(device))
+    # The kernels' operands are made once here.
+    return with_gemm_constants(_convert(qparams_np, resolve_device(device)))

@@ -1,9 +1,13 @@
 """2-D convolution with quantization-aware dispatch, NHWC / HWIO (counterpart
 of quantnet/ops/conv.py:59-136, 139-300).
 
-Three paths, picked by the layer's leaves:
+Four paths, picked by the layer's leaves:
 
   fp32/bf16    w: Tensor                -> conv in the activation dtype
+                                           (bf16 weights pull it to bf16),
+                                           f32 accumulation and result
+  weight-only  w: QTensor, no 'aq'      -> conv of x and the int8 values,
+                                           per-channel scale after it
   dynamic PTQ  w: QTensor, aq dynamic   -> per-tensor quant, zero pre-pad,
                                            im2col, int8 GEMM kernel with the
                                            epilogue (scale, bias, activation,
@@ -18,8 +22,10 @@ Every path takes `out_quant` (the consumer's ActQuant) and then requantizes
 its output to int8 in that domain: the static int8 tensor handoff, which the
 int8 GEMM kernel stores itself. The int8 conv always lowers through im2col
 to the int8 GEMM kernel, as the JAX package does under
-`int8_conv_backend="im2col"`. The weight-only path, groups, relu6 and the
-probe / QAT branches come with later slices and raise here.
+`int8_conv_backend="im2col"`. The fp32 / bf16 and weight-only convs run
+outside Pallas in the JAX package too: here they are cuDNN convs in f32 with
+TF32 off. Grouped weights raise, as in the JAX package; groups, relu6 and the
+probe / QAT branches come with later slices.
 """
 from __future__ import annotations
 
@@ -29,10 +35,11 @@ import torch
 import torch.nn.functional as F
 
 from quantnet_torch.core.config import DEFAULT_FLAGS, Flags
-from quantnet_torch.core.quantize import dynamic_quantize, maybe_requantize, quantize_affine
+from quantnet_torch.core.quantize import dynamic_quantize, quantize_affine
 from quantnet_torch.core.types import ActQuant, DynamicActQuant, QTensor
 from quantnet_torch.ops.int8_matmul import K_ALIGN, Epilogue
-from quantnet_torch.ops.linear import apply_act, int8_epilogue, int8_matmul
+from quantnet_torch.ops.linear import float_epilogue, int8_epilogue, int8_matmul
+from quantnet_torch.ops.macs import record_conv
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 Padding = Union[str, Pads]
@@ -108,6 +115,15 @@ def _conv_no_tf32(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor
         return F.conv2d(x, w, stride=stride)
 
 
+def _conv_f32(x: torch.Tensor, w: torch.Tensor, stride: int, pads: Pads) -> torch.Tensor:
+    """NHWC x, HWIO w -> NHWC f32: the JAX package's conv with
+    `preferred_element_type=f32`. bf16 operands are widened to f32, where
+    their products are exact, and the conv runs in f32 with TF32 off."""
+    xp = _pad_nhwc(x.float(), pads).permute(0, 3, 1, 2)
+    y = _conv_no_tf32(xp, w.float().permute(3, 2, 0, 1), stride)
+    return y.permute(0, 2, 3, 1)
+
+
 def _int8_conv(
     qx: torch.Tensor,
     layer: dict,
@@ -145,17 +161,30 @@ def conv2d(
     b = layer.get("b")
     kh, kw = w.shape[0], w.shape[1]
     pads = _resolve_pads(padding, x.shape[1], x.shape[2], kh, kw, stride)
+    record_conv(x.shape, w.shape, stride, pads)
 
     if not isinstance(w, QTensor):
+        # The narrow-dtype rule of ops/linear.py: bf16 params pull the
+        # activations down to bf16; the conv accumulates and returns f32.
         cdtype = w.dtype if w.dtype == torch.bfloat16 else x.dtype
-        xp = _pad_nhwc(x.to(cdtype), pads).permute(0, 3, 1, 2)
-        y = _conv_no_tf32(xp, w.to(cdtype).permute(3, 2, 0, 1), stride)
-        y = y.permute(0, 2, 3, 1).float()
-        if b is not None:
-            y = y + b
-        return maybe_requantize(apply_act(y, activation), out_quant)
+        y = _conv_f32(x.to(cdtype), w.to(cdtype), stride, pads)
+        return float_epilogue(y, b, activation, out_quant)
+
+    if w.group_size is not None:
+        # A conv cannot split its reduction per group; quantize_weight never
+        # groups a 4-D kernel, so only a tree built by hand gets here.
+        raise NotImplementedError(
+            "group-wise quantized conv weights are unsupported; use per-channel "
+            "(quantize_weight groups 2-D weights only)"
+        )
 
     aq = layer.get("aq")
+    if aq is None:
+        # Weight-only: the conv in the activation dtype with f32 accumulation,
+        # the per-channel scale after it.
+        y = _conv_f32(x, w.values.to(x.dtype), stride, pads) * w.scale
+        return float_epilogue(y, b, activation, out_quant)
+
     if isinstance(aq, DynamicActQuant):
         # Symmetric per-batch quant: the f32 zero is the int8 zero, so pad with 0.
         qx, x_scale = dynamic_quantize(x, axis=None)
@@ -169,7 +198,4 @@ def conv2d(
         epi = int8_epilogue(layer, activation=activation, out_quant=out_quant)
         return _int8_conv(qx, layer, stride, pads, flags, epi, aq.zero_point.to(torch.int8))
 
-    raise NotImplementedError(
-        "the weight-only quantized conv comes with a later slice; got aq="
-        f"{type(aq).__name__}"
-    )
+    raise TypeError(f"unsupported activation-quant leaf {type(aq).__name__}")

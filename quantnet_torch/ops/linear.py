@@ -1,9 +1,12 @@
 """Dense layer with quantization-aware dispatch (counterpart of
 quantnet/ops/linear.py:93-226).
 
-Three paths, picked by the layer's leaves:
+Four paths, picked by the layer's leaves:
 
-  fp32/bf16    w: Tensor                  -> x @ w + b
+  fp32/bf16    w: Tensor                  -> x @ w + b, f32 accumulation
+                                             and result
+  weight-only  w: QTensor, no 'aq'        -> (x @ q) * scale (grouped:
+                                             x @ dequantize(w))
   dynamic PTQ  w: QTensor, aq dynamic     -> fused kernel with the relu in
                                              its store, or per-row quant +
                                              int8 GEMM kernel with the
@@ -14,8 +17,10 @@ Three paths, picked by the layer's leaves:
 
 Every path takes `out_quant` and then requantizes its output into that
 domain (the int8 handoff; see ops/conv.py); on the int8 GEMM paths the
-kernel stores that int8 output itself. The weight-only and W4A8 paths, and
-the probe / QAT branches, come with later slices and raise here.
+kernel stores that int8 output itself. The fp32 / bf16 and weight-only
+products run outside Pallas in the JAX package too: here they are PyTorch
+products with TF32 off. W4A8's grouped static path and the probe / QAT
+branches come with later slices and raise here.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from quantnet_torch.ops.int8_matmul import (
     int8_gemm_epilogue,
     int8_gemm_epilogue_plain,
 )
+from quantnet_torch.ops.macs import record_linear
 
 
 def apply_act(y: torch.Tensor, activation: Optional[str]) -> torch.Tensor:
@@ -161,6 +167,53 @@ def int8_matmul(qx: torch.Tensor, layer: dict, flags: Flags, epi: Epilogue) -> t
     return gemm(qx.contiguous(), b, epi)
 
 
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w with f32 accumulation and an f32 result, as the JAX package's
+    `jnp.dot(..., preferred_element_type=f32)`: bf16 operands are widened to
+    f32, where the product of two bf16 values is exact, and multiplied in
+    f32 with TF32 off, whatever the caller has set."""
+    x, w = x.float(), w.float()
+    if not x.is_cuda:
+        return torch.matmul(x, w)
+    cublas = torch.backends.cuda.matmul
+    before = cublas.allow_tf32
+    cublas.allow_tf32 = False
+    try:
+        return torch.matmul(x, w)
+    finally:
+        cublas.allow_tf32 = before
+
+
+def needs_gemm_constants(layer: dict) -> bool:
+    """Whether a layer runs through the int8 GEMM kernels and so keeps its
+    frozen operands under 'gemm': an int8 weight that is not grouped, with
+    a dynamic or static activation quant."""
+    w = layer.get("w")
+    return (
+        isinstance(w, QTensor) and w.group_size is None
+        and isinstance(layer.get("aq"), (ActQuant, DynamicActQuant))
+    )
+
+
+def with_gemm_constants(node):
+    """A params tree whose every layer that needs them (needs_gemm_constants)
+    holds its GEMM constants under 'gemm', made here, once: for a tree
+    carried over or loaded from an artifact."""
+    if not isinstance(node, dict):
+        return node
+    out = {k: with_gemm_constants(v) for k, v in node.items()}
+    if needs_gemm_constants(out):
+        out["gemm"] = gemm_constants(out)
+    return out
+
+
+def float_epilogue(y: torch.Tensor, b, activation, out_quant) -> torch.Tensor:
+    """+ b, activation and the int8 handoff after an f32 product."""
+    if b is not None:
+        y = y + b
+    return maybe_requantize(apply_act(y, activation), out_quant)
+
+
 def linear(
     layer: dict,
     x: torch.Tensor,
@@ -172,16 +225,38 @@ def linear(
     """Apply a dense layer {'w', optional 'b', 'aq', 'wsum', 'gemm'} to x[M, K]."""
     w = layer["w"]
     b = layer.get("b")
+    record_linear(x.shape[0], x.shape[1], w.shape[-1])
     if not isinstance(w, QTensor):
         # bf16 params pull f32 activations down to bf16; f32 params leave the
         # activations' dtype as it is (the JAX package's narrow-dtype rule).
+        # The product is accumulated and returned in f32 either way.
         cdtype = w.dtype if w.dtype == torch.bfloat16 else x.dtype
-        y = torch.matmul(x.to(cdtype), w.to(cdtype)).float()
-        if b is not None:
-            y = y + b
-        return maybe_requantize(apply_act(y, activation), out_quant)
+        return float_epilogue(matmul_f32(x.to(cdtype), w.to(cdtype)), b, activation, out_quant)
 
     aq = layer.get("aq")
+    if aq is None:
+        # Weight-only: the product in the activation dtype, f32 accumulation.
+        # A per-channel scale moves past the product, (x @ q) * s; a grouped
+        # one varies along K, so the weight is dequantized first.
+        if w.group_size is not None:
+            y = matmul_f32(x, w.dequantize(x.dtype))
+        else:
+            y = matmul_f32(x, w.values.to(x.dtype)) * w.scale
+        return float_epilogue(y, b, activation, out_quant)
+
+    if w.group_size is not None:
+        if isinstance(aq, ActQuant):
+            raise NotImplementedError(
+                "W4A8's grouped static linear needs a batched int8 GEMM kernel (K1 with "
+                "a batch axis over the K groups), which is not ported yet"
+            )
+        # No kernel takes a (K // g, 1, N) scale on the dynamic path: fail
+        # rather than broadcast it into a wrong-shaped output.
+        raise NotImplementedError(
+            "group-wise quantized weights need a frozen ActQuant (W4A8) or no "
+            f"activation quant (weight-only); got {type(aq).__name__}"
+        )
+
     if isinstance(aq, DynamicActQuant):
         n = w.values.shape[-1]
         if flags.dynamic_linear == "fused":
@@ -201,12 +276,9 @@ def linear(
 
     if isinstance(aq, ActQuant):
         # Static: (qx - zp) @ qw = qx @ qw - zp * colsum(qw), the colsum
-        # baked as 'wsum'. W4A8's grouped weights come with a later slice.
+        # baked as 'wsum'.
         qx = x if x.dtype == torch.int8 else quantize_affine(x, aq.scale, aq.zero_point)
         epi = int8_epilogue(layer, activation=activation, out_quant=out_quant)
         return int8_matmul(qx, layer, flags, epi)
 
-    raise NotImplementedError(
-        "the weight-only quantized linear comes with a later slice; got aq="
-        f"{type(aq).__name__}"
-    )
+    raise TypeError(f"unsupported activation-quant leaf {type(aq).__name__}")

@@ -13,7 +13,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from quantnet_torch.core.quantize import quantize_symmetric
+from quantnet_torch.core.quantize import quantize_symmetric, quantize_symmetric_grouped
 from quantnet_torch.core.types import QTensor
 
 
@@ -46,21 +46,32 @@ def layer_paths(params: dict, prefix: str = "") -> list:
     return paths
 
 
-def quantize_weight(w: torch.Tensor, per_channel: bool) -> QTensor:
-    """Symmetric int8 weight quantization; channel axis = last (HWIO / KN).
+def quantize_weight(
+    w: torch.Tensor, per_channel: bool, bits: int = 8, group_size: Optional[int] = None
+) -> QTensor:
+    """Symmetric weight quantization; channel axis = last (HWIO / KN).
 
-    The JAX package quantizes weights inside its jitted transforms
-    (quantnet/quantize/dynamic.py:31-69, static.py:255-304), where XLA takes
-    `amax / 127` as a multiply by the f32 reciprocal; `quantize_symmetric`
-    does the same, so both bake the same bits.
+    group_size gives a 2-D (K, N) weight group-wise scales along K, where
+    group_size divides K and per_channel is asked for; a conv kernel (4-D)
+    or a K it does not divide falls back to per channel, as in
+    quantnet/quantize/common.py:47-68.
+
+    The JAX package quantizes weights inside its jitted transforms, where
+    XLA takes `amax / 127` as a multiply by the f32 reciprocal; the port's
+    quantizers do the same, so both bake the same bits.
     """
+    if per_channel and group_size is not None and w.ndim == 2 and w.shape[0] % group_size == 0:
+        return quantize_symmetric_grouped(w, group_size, bits=bits)
     axis = (w.ndim - 1) if per_channel else None
-    return quantize_symmetric(w, axis=axis)
+    return quantize_symmetric(w, axis=axis, bits=bits)
 
 
 def weight_colsum(qw: QTensor) -> torch.Tensor:
     """int32[O]: the per-output-channel sum of the int8 weight, the static
-    path's zero-point correction (x - zp) @ w = x @ w - zp * colsum(w)."""
+    path's zero-point correction (x - zp) @ w = x @ w - zp * colsum(w).
+    The per-group colsum of a grouped weight comes with W4A8."""
+    if qw.group_size is not None:
+        raise NotImplementedError("the per-group colsum of a grouped weight comes with W4A8")
     v = qw.values.to(torch.int32)
     return v.sum(dim=tuple(range(v.ndim - 1)), dtype=torch.int32)
 

@@ -19,6 +19,7 @@ from quantnet_torch.quantize.common import (
     first_layer_path,
     last_layer_path,
     quantize_weight,
+    resolve_policy,
     walk_layers,
 )
 from quantnet_torch.quantize.fold import fold_model
@@ -32,19 +33,29 @@ def quantize(
     per_channel: bool = True,
     skip_last_layer: bool = False,
     skip_first_layer: bool = False,
+    layer_policy: Optional[dict] = None,
+    last_layer_name: Optional[str] = None,
     handoff: Optional[str] = "bfloat16",
 ) -> Tuple[dict, dict]:
     """FP32 (params, state) -> dynamically quantized (params', {}).
 
     skip_first_layer / skip_last_layer keep the stem / classifier in fp32.
-    The transform runs on the device the params lie on. The per-layer policy
-    table and `last_layer_name` of the JAX package come with a later slice.
+    An explicit `layer_policy` entry (exact path or leaf name) wins over the
+    skip flags; 'fp32' keeps a layer in fp32. `last_layer_name` names the
+    classifier (found from the tree's layer names otherwise), whose logits
+    stay f32. The transform runs on the device the params lie on.
     """
     params, _ = fold_model(params, state)
-    first, last = first_layer_path(params), last_layer_path(params)
+    last = last_layer_name or last_layer_path(params)
+    first = first_layer_path(params)
 
     def q(path: str, layer: dict) -> dict:
-        if (skip_last_layer and path == last) or (skip_first_layer and path == first):
+        action = resolve_policy(path, "dynamic", layer_policy)
+        explicit = bool(layer_policy) and (
+            path in layer_policy or path.rsplit("/", 1)[-1] in layer_policy
+        )
+        skipped = (skip_last_layer and path == last) or (skip_first_layer and path == first)
+        if action == "fp32" or (not explicit and skipped):
             return dict(layer)
         out = dict(layer)
         out["w"] = quantize_weight(layer["w"], per_channel)

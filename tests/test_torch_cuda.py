@@ -242,3 +242,66 @@ def test_fp32_conv_keeps_f32_and_restores_cudnn_flags(dev):
     # Computed in float64; conv2d hands the fp32 branch's result on as float32.
     ref = conv2d({"w": layer["w"].double()}, x.double(), stride=2, padding="SAME")
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("skip_first_layer,launches", [(True, 7), (False, 8)])
+def test_static_convnet_goes_through_the_kernels(dev, skip_first_layer, launches):
+    """The convnet's static sibling: every int8 layer one fused K1 launch,
+    int8 handed from layer to layer; the logits are the plain run's bits."""
+    from quantnet_torch.entry import static_entry
+
+    fn, (q, qs, x) = static_entry(dev, batch_size=64, calibration_size=8,
+                                  skip_first_layer=skip_first_layer)
+    int8_gemm.launches = fused_dynamic_gemm.launches = 0
+    got = fn(q, qs, x)
+    assert (int8_gemm.launches, fused_dynamic_gemm.launches) == (launches, 0)
+    ref, _ = convnet.apply(q, qs, x, flags=Flags(plain=True))
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("scheme", ["bf16", "weight_only", "weight_only_int4"])
+def test_float_products_keep_f32(dev, scheme, tmp_path):
+    """Each layer of the bf16 and weight-only schemes on the card against the
+    same layer on the CPU, on the same input and weights (the tree is built
+    on the CPU and loaded onto the card as an artifact: a tree built on the
+    card folds BN with the card's rsqrt, an ulp apart, which moves a weight's
+    rounding now and then). Bound 1e-5 x max|y|, f32 order: TF32 measured
+    3e-4 on the card, and a product rounded to bf16 is about 4e-3 off. The
+    caller's TF32 settings are left as they were."""
+    from quantnet_torch.models.convnet import QUANT_LAYERS
+    from quantnet_torch.ops.conv import conv2d
+    from quantnet_torch.ops.linear import linear
+    from quantnet_torch.quantize import bf16, weight_only
+    from quantnet_torch.train.checkpoint import load_artifact, save_artifact
+
+    transform = {"bf16": bf16.quantize, "weight_only": weight_only.quantize,
+                 "weight_only_int4": lambda p, s: weight_only.quantize(p, s, bits=4, group_size=128)}
+    params, state = convnet.init(torch.Generator().manual_seed(0), device="cpu")
+    q, _ = transform[scheme](params, state)
+    save_artifact(str(tmp_path / scheme), q)
+    on_card, _ = load_artifact(str(tmp_path / scheme), device=dev)
+    x = torch.randn((16, 32, 32, 3), generator=torch.Generator().manual_seed(1))
+    inputs = {}
+    convnet.apply(q, {}, x, capture=inputs)
+    before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    for name in QUANT_LAYERS:
+        op = conv2d if name.startswith("conv") else linear
+        ref = op(q[name], inputs[name], activation="relu")
+        got = op(on_card[name], inputs[name].to(dev), activation="relu")
+        assert got.dtype == torch.float32, name
+        torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-5 * ref.abs().max().item(), msg=name)
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == before
+
+
+def test_artifact_round_trip_on_the_card(dev, tmp_path):
+    from quantnet_torch.train.checkpoint import load_artifact, save_artifact
+
+    params, state = convnet.init(torch.Generator().manual_seed(0), device=dev)
+    q, qs = dynamic.quantize(params, state)
+    x = torch.randn((32, 32, 32, 3), generator=torch.Generator().manual_seed(1)).to(dev)
+    before, _ = convnet.apply(q, qs, x)
+    save_artifact(str(tmp_path / "dynamic"), {"params": q, "state": qs})
+    tree, _ = load_artifact(str(tmp_path / "dynamic"), device=dev)
+    assert tree["params"]["fc1"]["w"].values.is_cuda
+    after, _ = convnet.apply(tree["params"], tree["state"], x)
+    assert torch.equal(before, after)

@@ -1,4 +1,5 @@
-"""quantnet_torch and chip_smoke.py import neither JAX nor the JAX package."""
+"""quantnet_torch, chip_smoke.py and bench_torch.py import neither JAX nor
+the JAX package."""
 import pathlib
 import re
 import subprocess
@@ -7,7 +8,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "quantnet_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "quantnet_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                ROOT / "bench_torch.py"]
 FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|quantnet)(?:[.\s,]|$)", re.M)
 
 
@@ -32,6 +34,7 @@ def test_package_imports_with_jax_blocked():
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "import bench_torch\n"
         "print('ok', len(sys.modules))\n"
     )
     out = subprocess.run(

@@ -19,7 +19,7 @@ from quantnet.ops import layers as jlayers
 from quantnet.ops import linear as jlinear
 from quantnet_torch import interop
 from quantnet_torch.core.config import Flags
-from quantnet_torch.core.types import QTensor
+from quantnet_torch.core.types import ActQuant, DynamicActQuant, QTensor
 from quantnet_torch.ops import conv as tconv
 from quantnet_torch.ops import layers as tlayers
 from quantnet_torch.ops import linear as tlinear
@@ -178,11 +178,19 @@ def test_fp32_linear_matches():
 
 
 def test_unported_paths_raise():
-    q = QTensor(values=torch.zeros((4, 2), dtype=torch.int8), scale=torch.ones(1, 2))
-    with pytest.raises(NotImplementedError):
-        tlinear.linear({"w": q}, torch.zeros((1, 4)))
-    qc = QTensor(values=torch.zeros((3, 3, 1, 2), dtype=torch.int8), scale=torch.ones(1, 1, 1, 2))
-    with pytest.raises(NotImplementedError):
+    """Grouped weights have no route but the weight-only one: a grouped conv
+    raises, as in the JAX package, and so does a grouped dense weight on the
+    dynamic path and on the static (W4A8) path, which needs a batched int8
+    GEMM kernel."""
+    q = QTensor(values=torch.zeros((4, 2), dtype=torch.int8), scale=torch.ones(2, 1, 2), group_size=2)
+    with pytest.raises(NotImplementedError, match="group-wise"):
+        tlinear.linear({"w": q, "aq": DynamicActQuant()}, torch.zeros((1, 4)))
+    aq = ActQuant(torch.tensor(0.1), torch.tensor(0, dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="batched int8 GEMM"):
+        tlinear.linear({"w": q, "aq": aq}, torch.zeros((1, 4)))
+    qc = QTensor(values=torch.zeros((3, 3, 1, 2), dtype=torch.int8), scale=torch.ones(1, 1, 1, 2),
+                 group_size=1)
+    with pytest.raises(NotImplementedError, match="group-wise"):
         tconv.conv2d({"w": qc}, torch.zeros((1, 4, 4, 1)))
     with pytest.raises(ValueError):
         Flags(dynamic_linear="xla")
