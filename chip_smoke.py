@@ -54,9 +54,29 @@ and the port's bench script. Phases, each printing one line with its wall time:
                 held against the host's), its predictions held against
                 fp32's, and benched at bs1 and bs32 (size, p50, mfu, memory)
  12. bench_torch  bench_torch.py's measurement in this process, its lines
- 13. kernels    one JSON line with an entry per kernel and path it runs on
+ 13. serve      each path (static convnet, static ResNet-50, dynamic convnet)
+                served by the continuous-batching engine over the u8 wire
+                through one CUDA graph per bucket: each bucket's replay
+                bit-equal to an eager forward of the same batch; trickle
+                (64 requests, each awaited; with the 2 ms coalescing window
+                and without it) and burst (1024, 512, 512 at once) loads
+                with their latency percentiles, req/s and occupancy, no
+                wrapper called during them (every batch a replay); each
+                bucket's replay launching, in a device trace, the kernels
+                the wrappers count in an eager forward; the loads run again
+                under a trace, its kernel launches equal to those of one
+                replay times the batches served; every served request's
+                logits bit-equal to an eager forward of the same images at
+                bs128 (and so the same argmax)
+ 14. observers  static ResNet-50 calibrated with the histogram and the MSE
+                observer: finite logits at bs128, relative L2 to fp32
+ 15. cli        python -m quantnet_torch's stages in process: import-torch of
+                tests/fixtures/ref_ckpt_dict.pth -> quantize --scheme static
+                -> evaluate -> bench --batch-sizes 1,32,1024 -> serve --wire u8
+ 16. kernels    one JSON line with an entry per kernel and path it runs on
                 (K1 three times: each convnet's and ResNet-50's), each with
-                its numbers
+                its numbers and its launches through the serving engine,
+                counted in device traces
 Any failed check raises before the last line, which is the only place that
 prints {"ok": true, ...}. Nothing is written outside build/ (gitignored).
 """
@@ -125,6 +145,31 @@ SCHEME_BATCHES = (1, 32)
 # K1's GEMMs on the static convnet beyond the dynamic one's convs (conv2-conv6
 # are the same shapes): fc1 and fc2 at bs1024.
 STATIC_FC_SHAPES = [("static_fc1", 1024, 4096, 512), ("static_fc2", 1024, 512, 10)]
+
+
+# The serving engine (quantnet_torch/serve): one CUDA graph per bucket, the u8
+# wire normalized on the card with the data's statistics. Trickle: requests
+# one at a time, each awaited, with the 2 ms coalescing window and again
+# without one (what a lone request costs beyond the window); burst: all
+# submitted at once. Served logits are held against an eager forward of the
+# same images at bs128: the same argmax, a relative L2 under
+# SERVE_REL_L2_MAX, and bit-equal. The dynamic convnet is served in bursts of
+# whole 128-request batches (one bucket, a long coalescing window), so each
+# batch is the same batch as its reference (its convs' activation scale is
+# per batch); the static engines' rows are independent of their batch-mates
+# but for the fp32 stem's cuDNN algorithm, which may change with the batch
+# size; on an H100 it did not, so they are held bit-equal too.
+SERVE_BUCKETS = (1, 8, 32, 128)
+TRICKLE_REQUESTS = 64
+SERVE_REL_L2_MAX = 1e-3
+CIFAR10_MEAN, CIFAR10_STD = (0.4914, 0.4822, 0.4465), (0.2470, 0.2435, 0.2616)
+IMAGENET_MEAN, IMAGENET_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+# (path, image size, burst requests, buckets, max_wait_ms, trickle, normalize)
+SERVED = [
+    ("convnet_static", 32, 1024, SERVE_BUCKETS, 2.0, True, (CIFAR10_MEAN, CIFAR10_STD)),
+    ("resnet50", RESNET_IMAGE, 512, SERVE_BUCKETS, 2.0, True, (IMAGENET_MEAN, IMAGENET_STD)),
+    ("convnet", 32, 512, (128,), 2000.0, False, (CIFAR10_MEAN, CIFAR10_STD)),
+]
 
 
 class SmokeFailure(RuntimeError):
@@ -893,6 +938,192 @@ def schemes_phase(torch, dev, models):
     phase("schemes", t2, f"{len(loaded)} schemes benched at bs{' and bs'.join(map(str, SCHEME_BATCHES))}")
 
 
+def _served(eng, images, trickle: bool):
+    """Submit `images` (trickle: one at a time, each awaited; else all at
+    once) -> (logits, seconds, latency stats, engine stats, occupancy)."""
+    eng.reset_stats()
+    t0 = time.perf_counter()
+    if trickle:
+        out = [eng.predict(img, timeout=120) for img in images]
+    else:
+        futs = [eng.submit(img) for img in images]
+        out = [f.result(timeout=120) for f in futs]
+    seconds = time.perf_counter() - t0
+    return out, seconds, eng.latency_stats(), dict(eng.stats), eng.occupancy()
+
+
+def _serve_loads(eng, loads, wait_ms):
+    """Each load in turn (trickle ones with the coalescing window or without
+    it, then the burst) -> {kind: _served(...)}."""
+    runs = {}
+    for kind, imgs in loads:
+        eng.max_wait_s = 0.0 if kind == "trickle, no window" else wait_ms / 1e3
+        runs[kind] = _served(eng, imgs, kind.startswith("trickle"))
+    return runs
+
+
+def _load_line(kind, n, seconds, lat, stats, occ) -> str:
+    return (f"{kind} {n}: {n / seconds:.1f} req/s, p50 {lat['p50_ms']:.4f} / p95 {lat['p95_ms']:.4f} "
+            f"/ p99 {lat['p99_ms']:.4f} ms, {int(stats['batches'])} batches, occupancy {occ:.4f}")
+
+
+def serve_phase(torch, dev, models):
+    """Each path served by the continuous-batching engine through its CUDA
+    graphs: every bucket's replay bit-equal to an eager forward of the same
+    batch and launching, in a device trace, the kernels the wrappers count
+    in that eager forward; trickle and burst loads, during which no wrapper
+    is called (every batch a replay); the same loads under a device trace,
+    its kernel launches equal to one replay's times the batches served;
+    every served request's logits against an eager forward of the same
+    images at the largest bucket."""
+    import numpy as np
+
+    from quantnet_torch.bench.trace import kernel_launches, trace
+    from quantnet_torch.ops.fused_dynamic_matmul import fused_dynamic_gemm
+    from quantnet_torch.ops.int8_matmul import int8_gemm
+    from quantnet_torch.ops.residual_boundary import residual_boundary
+    from quantnet_torch.serve import InferenceEngine
+
+    wrappers = (int8_gemm, fused_dynamic_gemm, residual_boundary)
+
+    def counted(fn):
+        """The wrappers' launch counts over fn(), from 0."""
+        for k in wrappers:
+            k.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        return {k.__name__: k.launches for k in wrappers}
+
+    out = {}
+    for path, image, burst, buckets, wait_ms, trickle, norm in SERVED:
+        t0 = time.perf_counter()
+        m = models[path]
+        shape = (image, image, 3)
+        with InferenceEngine(m["apply"], m["q"], m["qs"], image_shape=shape, buckets=buckets,
+                             max_wait_ms=wait_ms, device=dev, wire_dtype="uint8",
+                             normalize=norm) as eng:
+            capture_s = time.perf_counter() - t0
+            g = torch.Generator().manual_seed(SEED + 3)
+            for b in eng.buckets:
+                x = torch.randint(0, 256, (b, *shape), generator=g, dtype=torch.uint8).to(dev)
+                got, want = eng.replay(x), eng.forward(x)
+                err = (got - want).abs().max().item()
+                check(torch.equal(got, want), f"[serve] {path} bucket {b}: replay vs eager forward "
+                      f"max |diff| {err}, not bit-equal")
+                eager = counted(lambda: eng.forward(x))
+                _, prof = trace(lambda: eng.replay(x))
+                per_replay = kernel_launches(prof)
+                check(per_replay == eager and any(eager.values()),
+                      f"[serve] {path} bucket {b}: one replay launched {per_replay} in its trace, "
+                      f"the eager forward {eager}")
+            per_forward = per_replay  # the largest bucket's
+            rng = np.random.default_rng(SEED + 4)
+            loads = [("burst", rng.integers(0, 256, (burst, *shape), dtype=np.uint8))]
+            if trickle:
+                for kind in ("trickle", "trickle, no window"):
+                    loads.insert(-1, (kind, rng.integers(0, 256, (TRICKLE_REQUESTS, *shape),
+                                                         dtype=np.uint8)))
+            runs = {}
+            called = counted(lambda: runs.update(_serve_loads(eng, loads, wait_ms)))
+            check(not any(called.values()), f"[serve] {path}: the wrappers launched {called} during "
+                  "the loads: a batch ran outside its graph")
+            # The same loads again under a device trace, for the launches.
+            traced_runs, prof = trace(lambda: _serve_loads(eng, loads, wait_ms))
+            launches = kernel_launches(prof)
+            batches = sum(r[3]["batches"] for r in traced_runs.values())
+            want = {k: n * batches for k, n in per_forward.items()}
+            check(launches == want, f"[serve] {path}: traced launches {launches} in {batches} "
+                  f"batches, expected {want} ({per_forward} a replay)")
+            lines = []
+            for kind, imgs in loads:
+                served = np.stack(runs[kind][0])
+                check(np.array_equal(served, np.stack(traced_runs[kind][0])),
+                      f"[serve] {path} {kind}: the traced run's logits differ from the untraced run's")
+                ref = []
+                for i in range(0, len(imgs), buckets[-1]):
+                    chunk = np.zeros((buckets[-1], *shape), np.uint8)
+                    chunk[: len(imgs[i:i + buckets[-1]])] = imgs[i:i + buckets[-1]]
+                    ref.append(eng.forward(torch.from_numpy(chunk).to(dev))[: len(imgs[i:i + buckets[-1]])])
+                ref = torch.cat(ref).cpu().numpy()
+                delta = float(np.abs(served - ref).max())
+                rel = float(np.linalg.norm(served - ref) / np.linalg.norm(ref))
+                same = bool(np.array_equal(served, ref))
+                check(bool(np.isfinite(served).all()), f"[serve] {path} {kind}: non-finite logits")
+                check(np.array_equal(served.argmax(1), ref.argmax(1)),
+                      f"[serve] {path} {kind}: argmax differs from the eager forward")
+                check(rel < SERVE_REL_L2_MAX, f"[serve] {path} {kind}: rel L2 {rel} >= {SERVE_REL_L2_MAX}")
+                check(same, f"[serve] {path} {kind}: max |diff| {delta}, not bit-equal")
+                lines.append(f"{_load_line(kind, len(imgs), *runs[kind][1:])}; vs eager max |diff| "
+                             f"{delta!r}, rel L2 {rel:.3e}{', bit-equal' if same else ''}")
+                out.setdefault(path, {})[kind] = dict(
+                    requests=len(imgs), seconds=runs[kind][1], req_per_s=len(imgs) / runs[kind][1],
+                    occupancy=runs[kind][4], batches=runs[kind][3]["batches"], **runs[kind][2])
+            out[path]["launches_per_forward"] = per_forward
+            out[path]["launches"] = launches
+        phase("serve", t0, f"{path} {image}x{image} u8 wire, buckets {buckets}: captured in "
+              f"{capture_s:.2f} s, every bucket's replay bit-equal to the eager forward and "
+              f"launching its kernels in a trace; no wrapper called during the loads; traced loads "
+              f"launched {launches} in {batches} batches ({per_forward} a replay); " + "; ".join(lines))
+    return out
+
+
+def observers_phase(torch, dev, m):
+    """Static ResNet-50 calibrated with the histogram and the MSE observer
+    (one batch of 32 images, as the resnet50 path's min-max), each forward
+    at bs128 finite, its relative L2 to fp32 printed."""
+    from quantnet_torch.models import resnet
+    from quantnet_torch.quantize import fold, static
+
+    t0 = time.perf_counter()
+    params, state, x = m["params"], m["state"], m["x"]
+    shape = (RESNET_CALIBRATION, RESNET_IMAGE, RESNET_IMAGE, 3)
+    calib = torch.randn(shape, generator=torch.Generator().manual_seed(SEED + 1)).to(dev)
+    fparams, fstate = fold.fold_model(params, state)
+    fp32, _ = resnet.apply(fparams, fstate, x)
+    parts = []
+    for kind in ("histogram", "mse"):
+        q, qs = static.quantize(params, state, resnet.apply, [calib], skip_first_layer=True,
+                                observer=kind)
+        logits, _ = resnet.apply(q, qs, x)
+        check(tuple(logits.shape) == (RESNET_BATCH, 1000) and bool(torch.isfinite(logits).all()),
+              f"[observers] {kind}: logits {tuple(logits.shape)} not finite")
+        rel = ((logits - fp32).norm() / fp32.norm()).item()
+        agree = (logits.argmax(1) == fp32.argmax(1)).float().mean().item()
+        parts.append(f"{kind}: rel L2 to fp32 {rel:.4f}, top-1 agreement {agree:.4f}")
+    phase("observers", t0, f"static ResNet-50 bs{RESNET_BATCH}, finite logits; " + "; ".join(parts))
+
+
+def cli_phase():
+    """The port's CLI in process, on the card, in a temporary directory
+    under build/: import-torch of the committed reference checkpoint ->
+    quantize --scheme static -> evaluate -> bench -> serve --wire u8."""
+    import pathlib
+    import tempfile
+
+    from quantnet_torch.cli.main import main as cli
+
+    t0 = time.perf_counter()
+    root = pathlib.Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root / "build") as d:
+        args = ["--save-dir", f"{d}/saved", "--results-dir", f"{d}/results", "--data-dir", f"{d}/data",
+                "--synthetic-train-size", "2048", "--synthetic-test-size", "2560"]
+        cli(["import-torch", "--ckpt", str(root / "tests" / "fixtures" / "ref_ckpt_dict.pth"), *args])
+        cli(["quantize", "--scheme", "static", *args])
+        acc = cli(["evaluate", *args])
+        bench = cli(["bench", "--batch-sizes", "1,32,1024", "--warmup", "3", "--iters", "20", *args])
+        served = cli(["serve", "--wire", "u8", "--requests", "256", *args])
+    check(set(acc) == {"fp32", "static"} and all(r["n"] == 2560 for r in acc.values()),
+          f"[cli] evaluate: {sorted(acc)}")
+    check(set(bench) == {"fp32", "static"} and all(
+        bench[n][f"bs{b}"]["p50_ms"] > 0 for n in bench for b in (1, 32, 1024)), "[cli] bench")
+    check(served["stats"]["requests"] == 256 and served["name"] == "static", "[cli] serve")
+    phase("cli", t0, f"import-torch -> quantize static -> evaluate (top-1 fp32 "
+          f"{acc['fp32']['top1']:.4f}, static {acc['static']['top1']:.4f}) -> bench (static bs1024 "
+          f"p50 {bench['static']['bs1024']['p50_ms']:.4f} ms) -> serve u8 (256 requests, "
+          f"{256 / served['seconds']:.1f} req/s)")
+
+
 def bench_torch_phase():
     """bench_torch.py's measurement, run in this process; its lines printed."""
     import contextlib
@@ -930,6 +1161,9 @@ def main() -> int:
     resnet_launches = resnet_phase(torch, dev, models["resnet50"])
     schemes_phase(torch, dev, models)
     bench_torch_phase()
+    serving = serve_phase(torch, dev, models)
+    observers_phase(torch, dev, models["resnet50"])
+    cli_phase()
 
     def entry(kname, path, source, replaces, launches, err, sums, library):
         return {
@@ -939,6 +1173,14 @@ def main() -> int:
             "ms": sums["ms"], "plain_ms": sums["plain_ms"], "bound_ms": sums["bound_ms"],
             "bound_by": bound_by(sums), "library_ms": library,
         }
+
+    def with_engine(e, path):
+        """Launches through the serving engine, counted in device traces:
+        per forward (one replay of the largest bucket's graph) and over the
+        traced run of the [serve] loads."""
+        e.update(engine_launches_per_forward=serving[path]["launches_per_forward"][e["name"]],
+                 serve_launches=serving[path]["launches"][e["name"]])
+        return e
 
     def k1_entry(path, launches):
         """K1 as the path launches it (its fused stores: ms, bound, plain),
@@ -963,7 +1205,7 @@ def main() -> int:
 
     # One entry per (kernel, path): K1 runs on the three paths, at other shapes,
     # so each path's launches, times and bound stay comparable across runs.
-    kernels = [
+    kernels = [with_engine(e, e["path"]) for e in (
         k1_entry("convnet", convnet_launches["int8_gemm"]),
         k1_entry("convnet_static", static_launches["int8_gemm"]),
         k1_entry("resnet50", resnet_launches["int8_gemm"]),
@@ -971,7 +1213,7 @@ def main() -> int:
         entry("residual_boundary", "resnet50", "residual_boundary.cu",
               "quantnet/ops/pallas_boundary.py:85", resnet_launches["residual_boundary"],
               boundary_err, k3, None),
-    ]
+    )]
     print(f"kernels: int8_gemm exact (int32) and bit-equal (every store) on the three paths; "
           f"fused_dynamic_gemm and residual_boundary bit-equal; no "
           "PyTorch call computes K1's fused store, K2 or K3 alone (library: none; "

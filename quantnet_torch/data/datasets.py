@@ -17,6 +17,9 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+CIFAR10_CLASSES = (
+    "plane", "car", "bird", "cat", "deer", "dog", "frog", "horse", "ship", "truck",
+)
 CIFAR10_MEAN = np.array([0.4914, 0.4822, 0.4465], np.float32)
 CIFAR10_STD = np.array([0.2470, 0.2435, 0.2616], np.float32)
 
@@ -37,6 +40,11 @@ class Dataset:
 
     def __len__(self) -> int:
         return self.labels.shape[0]
+
+    @property
+    def image_shape(self) -> Tuple[int, int, int]:
+        """(H, W, C) of one image."""
+        return tuple((self.images if self.raw_u8 is None else self.raw_u8).shape[1:])
 
     def _gather(self, sel: np.ndarray) -> np.ndarray:
         if self.raw_u8 is None:

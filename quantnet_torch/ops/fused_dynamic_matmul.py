@@ -156,6 +156,11 @@ def _check_operands(x, w_nk, w_scale, bias) -> None:
 # Per (device, stream): the kernel's workspace (partial planes and the
 # counters the blocks of a group share, zero between launches), allocated
 # once and grown as needed; and the bytes it needs per (device, M, N, K).
+# A launch captured into a CUDA graph takes a workspace of its own instead,
+# from the graph's memory pool and zeroed by a node of the graph ahead of
+# it: a replay, which may run on another stream than the capture's, then
+# shares no workspace with an eager launch, and the pool may hand the
+# memory to a later node of the same graph.
 _workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
 _workspace_bytes: Dict[Tuple[int, int, int, int], int] = {}
 
@@ -172,6 +177,8 @@ def _workspace(dev: int, stream: int, m: int, n: int, k: int) -> torch.Tensor:
         if need <= 0:
             raise RuntimeError(f"fused_dynamic_gemm takes no {m}x{k}x{n} product")
         _workspace_bytes[key] = need
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros((need,), dtype=torch.uint8, device=torch.device("cuda", dev))
     ws = _workspaces.get((dev, stream))
     if ws is None or ws.numel() < need:
         ws = torch.zeros((need,), dtype=torch.uint8, device=torch.device("cuda", dev))

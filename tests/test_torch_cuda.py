@@ -305,3 +305,39 @@ def test_artifact_round_trip_on_the_card(dev, tmp_path):
     assert tree["params"]["fc1"]["w"].values.is_cuda
     after, _ = convnet.apply(tree["params"], tree["state"], x)
     assert torch.equal(before, after)
+
+
+@pytest.mark.parametrize("scheme,launches", [("static", {"int8_gemm": 7}),
+                                             ("dynamic", {"int8_gemm": 6, "fused_dynamic_gemm": 2})])
+def test_engine_graph_replay_bit_equal_to_eager(dev, scheme, launches):
+    """The serving engine captures every bucket's forward (the u8 wire's
+    normalization included) in a CUDA graph: each replay is bit-equal to an
+    eager forward of the same batch and launches the path's kernels, counted
+    in a device trace (K2 under capture too, with its own workspace); served
+    requests get the replay's logits."""
+    import numpy as np
+
+    from quantnet_torch.bench.trace import kernel_launches, trace
+    from quantnet_torch.serve import InferenceEngine
+
+    params, state = convnet.init(torch.Generator().manual_seed(0), image_size=16, device=dev)
+    if scheme == "static":
+        calib = torch.randn((8, 16, 16, 3), generator=torch.Generator().manual_seed(1)).to(dev)
+        q, qs = static.quantize(params, state, convnet.apply, [calib], skip_first_layer=True)
+    else:
+        q, qs = dynamic.quantize(params, state)
+    norm = ((0.49, 0.48, 0.45), (0.25, 0.24, 0.26))
+    g = torch.Generator().manual_seed(2)
+    with InferenceEngine(convnet.apply, q, qs, image_shape=(16, 16, 3), buckets=(1, 8, 32),
+                         max_wait_ms=500, device=dev, wire_dtype="uint8", normalize=norm) as eng:
+        for b in eng.buckets:
+            x = torch.randint(0, 256, (b, 16, 16, 3), generator=g, dtype=torch.uint8).to(dev)
+            assert torch.equal(eng.replay(x), eng.forward(x)), b
+            per = kernel_launches(trace(lambda: eng.replay(x))[1])
+            assert {k: n for k, n in per.items() if n} == launches, (b, per)
+        imgs = np.random.default_rng(3).integers(0, 256, (32, 16, 16, 3), dtype=np.uint8)
+        futs = [eng.submit(img) for img in imgs]
+        got = np.stack([f.result(timeout=60) for f in futs])
+        assert eng.stats["batches"] == 1  # all 32 within one coalescing window
+        want = eng.forward(torch.from_numpy(imgs).to(dev)).cpu().numpy()
+    np.testing.assert_array_equal(got, want)
