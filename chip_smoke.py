@@ -1,82 +1,62 @@
 #!/usr/bin/env python3
-"""Drives quantnet_torch's main path on one NVIDIA card and checks its kernels.
+"""Drives quantnet_torch's main paths on one NVIDIA card and checks its kernels.
 
     python3 chip_smoke.py
 
-Three paths are driven: the dynamic-INT8 SimpleConvNet at bs1024 (K1 int8_gemm
-through im2col with the bf16 handoff fused into its store, K2
-fused_dynamic_gemm with fc1's relu fused into its store), its static-INT8
-sibling at bs1024 (fp32 stem, K1 at conv2-conv6 and fc1 storing int8 in the
-next layer's domain and at fc2 storing f32) and the static-INT8 ResNet-50 at
-bs128, 224x224 (K1 at 52 convs and the fc, storing int8 or f32, K3
-residual_boundary at 15 block boundaries). Then the convnet's scheme matrix
-and the port's bench script. Phases, each printing one line with its wall time:
+The paths: the dynamic-INT8 SimpleConvNet at bs1024 (K1 int8_gemm through
+im2col with the bf16 handoff fused into its store, K2 fused_dynamic_gemm with
+fc1's relu fused into its store), its static-INT8 sibling at bs1024 (fp32
+stem, K1 storing int8 in the next layer's domain, f32 at fc2) and its W4A8
+bake (fc1 and fc2 through K1's grouped-K mode, g128); the static-INT8
+ResNet-50 at bs128, 224x224 (K1 at 52 convs and the fc, K3 residual_boundary
+at 15 block boundaries), also with an int8 stem, 7x7 and space-to-depth;
+MobileNetV2 1.0 at bs256, 224x224, static (K1 at 36 layers with relu6 in its
+stores, K4 depthwise_conv at 17) and dynamic (K2 at the fc). Then the
+convnet's scheme matrix and the port's bench script. Phases, each printing
+one line with its wall time:
   1. device     the card's name and power limit (nvidia-smi); no card -> exit 1
   2. build      nvcc builds every kernel (quantnet_torch/_build.py), in
                 parallel; ptxas's registers, spills and static shared memory
-                of each kernel (K1: per template variant)
-  3. int8_gemm  K1's int32 store (the TPU kernel's function) against its plain
-                version, exact, at the reference test shapes, the GEMM shapes
-                of both convnets at bs1024 and every distinct GEMM shape of
-                ResNet-50 at bs128
-  4. k1 stores  one forward of each model with every K1 launch held against
-                int8_gemm_epilogue_plain on the same inputs, bit for bit: each
-                store (bf16, int8, f32) at every shape of the three paths
-  5. fused      K2 bit-equal to its plain version at fc1 and fc2, at bs1024 and
-                bs32, f32 and bf16 x, relu on and off, on random x and on x
-                at the quantize's rounding ties, its 1e-8 floor, subnormals
-                and past its fast division's range (fused_dynamic_cases)
-  6. boundary   K3 against its plain version, bit-equal, both variants, at the
-                JAX test shapes, an off-vector shape and ResNet-50's four
-                boundary shapes at bs128
-  7. times      each kernel at its main-path shapes (CUDA events around
+  3. int8_gemm  K1's int32 store exact at the reference test shapes and the
+                GEMM shapes of the convnets and ResNet-50; the int8 store's
+                division on adversarial inputs; the grouped-K mode bit-equal
+                at W4A8's four dense shapes and fc1's four groups
+  4. depthwise  K4 bit-equal at MobileNetV2's 17 depthwise shapes at bs256:
+                int32, static int8, dynamic bf16, rounding ties, past the
+                fast division's range
+  5. k1 stores  one forward of each model with every K1 and K4 launch held
+                against its plain version on the same inputs, bit for bit
+  6. fused      K2 bit-equal to its plain version (fc1 / fc2 at bs1024 and
+                bs32, MobileNetV2's fc at bs256; f32 and bf16 x; edge cases)
+  7. boundary   K3 bit-equal, both variants, at its test and ResNet-50 shapes
+  8. times      each kernel at its main-path shapes (CUDA events around
                 back-to-back calls), summed over one forward, beside its bound,
-                its plain version and, where one PyTorch call computes the
-                same, that call; K1 twice per path: its int32 store beside
-                torch._int_mm, and as the path launches it beside the unfused
-                route it replaced (the int32 store, then the epilogue in
-                PyTorch ops); K2 at bs1024 and bs32, on random inputs and on
-                the forward's own fc1 / fc2 inputs; and the host's cost of
-                one K1 and one K2 launch beside one torch._int_mm call
-  8. convnet    init -> BN fold -> dynamic INT8 -> forward at bs1024; launch
-                counts, agreement with the plain versions and fp32, throughput
-  9. static     init -> BN fold -> min-max calibration (32 images) -> static
-                INT8 bake (fp32 stem) -> forward at bs1024; launch counts,
-                agreement with the plain versions and fp32, throughput and
-                roofline
- 10. resnet50   init -> BN fold -> min-max calibration (32 images) -> static
-                INT8 bake (fp32 stem) -> forward at bs128; launch counts,
-                agreement with the plain versions and fp32, throughput
- 11. schemes    fp32, dynamic, static, weight-only int8 and int4 (fc1 at g128)
-                and bf16 from the same weights: each saved and loaded as an
-                artifact (logits bit-equal after the round trip), scored by
-                the evaluator on the synthetic CIFAR-10 test split (its counts
-                held against the host's), its predictions held against
-                fp32's, and benched at bs1 and bs32 (size, p50, mfu, memory)
- 12. bench_torch  bench_torch.py's measurement in this process, its lines
- 13. serve      each path (static convnet, static ResNet-50, dynamic convnet)
-                served by the continuous-batching engine over the u8 wire
-                through one CUDA graph per bucket: each bucket's replay
-                bit-equal to an eager forward of the same batch; trickle
-                (64 requests, each awaited; with the 2 ms coalescing window
-                and without it) and burst (1024, 512, 512 at once) loads
-                with their latency percentiles, req/s and occupancy, no
-                wrapper called during them (every batch a replay); each
-                bucket's replay launching, in a device trace, the kernels
-                the wrappers count in an eager forward; the loads run again
-                under a trace, its kernel launches equal to those of one
-                replay times the batches served; every served request's
-                logits bit-equal to an eager forward of the same images at
-                bs128 (and so the same argmax)
- 14. observers  static ResNet-50 calibrated with the histogram and the MSE
-                observer: finite logits at bs128, relative L2 to fp32
- 15. cli        python -m quantnet_torch's stages in process: import-torch of
-                tests/fixtures/ref_ckpt_dict.pth -> quantize --scheme static
-                -> evaluate -> bench --batch-sizes 1,32,1024 -> serve --wire u8
- 16. kernels    one JSON line with an entry per kernel and path it runs on
-                (K1 three times: each convnet's and ResNet-50's), each with
-                its numbers and its launches through the serving engine,
-                counted in device traces
+                its plain version, the PyTorch call that computes the same
+                (torch._int_mm for K1's int32 store, F.conv2d in f32 for K4's)
+                or the unfused route it replaced, and the host's cost of a call
+  9. paths      each model's forward with every count set to 0 just before it:
+                launch counts, logits bit-equal to the plain-version forward,
+                relative L2 to fp32, throughput and mfu ([main path], [static],
+                [resnet50], [w4a8], [mobilenetv2], [mobilenetv2_dynamic],
+                [resnet50 s2d] against the 7x7 int8-stem tree)
+ 10. schemes    fp32, dynamic, static, weight-only int8 and int4, bf16 and
+                W4A8 from the same weights: artifact round trip bit-equal,
+                the evaluator's counts held against the host's, agreement
+                with fp32, bench at bs1 and bs32
+ 11. bench_torch  bench_torch.py's measurement in this process, its lines
+ 12. serve      the static convnet, static ResNet-50, the dynamic convnet and
+                static MobileNetV2 served over the u8 wire through one CUDA
+                graph per bucket: every replay bit-equal to an eager forward
+                and launching, in a device trace, what the wrappers count in
+                it; trickle and burst loads; every served request bit-equal
+ 13. observers  static ResNet-50 calibrated with the histogram and MSE observers
+ 14. cli        python -m quantnet_torch in process: the reference convnet
+                checkpoint import-torch -> quantize static -> evaluate ->
+                bench -> serve; a torchvision MobileNetV2 state dict the same
+                way with quantize w4a8
+ 15. kernels    one JSON line with an entry per kernel and path (K1 on four
+                paths, K1's grouped-K mode, K2, K3, K4), its numbers and its
+                launches through the serving engine, counted in device traces
 Any failed check raises before the last line, which is the only place that
 prints {"ok": true, ...}. Nothing is written outside build/ (gitignored).
 """
@@ -138,13 +118,46 @@ STATIC_FP32_REL_L2_MAX = 0.06
 # random weights top-1 is chance, so each quantized scheme is held to the
 # share of its predictions that equal fp32's. A CPU rehearsal of the same
 # weights and split measured dynamic 0.9824, static 0.9797, weight_only
-# 0.9918, weight_only_int4 0.8395 and bf16 0.9965; the floors leave 2-4 points.
+# 0.9918, weight_only_int4 0.8395, bf16 0.9965 and w4a8 0.9145; the floors
+# leave 2-4 points.
 SCHEME_AGREEMENT_MIN = {"dynamic": 0.95, "static": 0.95, "weight_only": 0.97,
-                        "weight_only_int4": 0.80, "bf16": 0.97}
+                        "weight_only_int4": 0.80, "bf16": 0.97, "w4a8": 0.88}
 SCHEME_BATCHES = (1, 32)
 # K1's GEMMs on the static convnet beyond the dynamic one's convs (conv2-conv6
 # are the same shapes): fc1 and fc2 at bs1024.
 STATIC_FC_SHAPES = [("static_fc1", 1024, 4096, 512), ("static_fc2", 1024, 512, 10)]
+# The paths whose K1 launches [times] times and the kernels line reports, one
+# entry each; the W4A8 convnet's grouped-K launches get an entry of their own.
+K1_PATHS = ("convnet", "convnet_static", "resnet50", "mobilenetv2")
+# W4A8 (static.bake with weight_bits=4): the grouped-K mode of K1 at W4A8's
+# dense layers with the CLI's default group (--int4-group-size 128): the
+# convnet's fc1 and fc2 at bs1024, ResNet-50's fc at bs128 and MobileNetV2's
+# fc at bs256 (name, M, K, N); fc1 also at every group the mode takes there.
+W4A8_GROUP = 128
+GROUPED_SHAPES = [("convnet_fc1", 1024, 4096, 512), ("convnet_fc2", 1024, 512, 10),
+                  ("resnet50_fc", 128, 2048, 1000), ("mobilenetv2_fc", 256, 1280, 1000)]
+FC1_GROUPS = (32, 64, 128, 256)
+# W4A8 convnet (the static sibling's weights and calibration, fp32 stem, g128)
+# against its fp32 folded model, relative L2 of the logits: a CPU rehearsal of
+# this configuration at bs16 measured 0.2407 (4-bit weights on random ones);
+# the bound leaves 1.5x.
+W4A8_FP32_REL_L2_MAX = 0.36
+# MobileNetV2 1.0 (1000 classes, random weights from seed 0) at 224x224, bs256:
+# the size the JAX package benchmarks (docs/results_tpu_v5e_mobilenet_224).
+MNV2_BATCH = 256
+MNV2_IMAGE = 224
+# Against the fp32 folded model, relative L2 of the logits: a CPU rehearsal at
+# bs16 measured 0.0641 (static: min-max on 32 images, int8 stem) and 0.0669
+# (dynamic); the bound leaves 2.3x.
+MNV2_FP32_REL_L2_MAX = 0.15
+# Static ResNet-50 with the space-to-depth stem (int8 stem: K1 at K = 192)
+# against the 7x7 tree with an int8 stem, both calibrated on the same images:
+# the stems quantize to the same int8 weights and input domain, and the other
+# layers' scales differ in the last places (the calibration forward's fp32
+# stems sum in other orders). A CPU rehearsal at bs16 measured max |diff|
+# 0.0080 x max|logit| and relative L2 0.0062; the bounds leave about 3x.
+S2D_MAX_DIFF = 0.03
+S2D_REL_L2_MAX = 0.02
 
 
 # The serving engine (quantnet_torch/serve): one CUDA graph per bucket, the u8
@@ -169,6 +182,7 @@ SERVED = [
     ("convnet_static", 32, 1024, SERVE_BUCKETS, 2.0, True, (CIFAR10_MEAN, CIFAR10_STD)),
     ("resnet50", RESNET_IMAGE, 512, SERVE_BUCKETS, 2.0, True, (IMAGENET_MEAN, IMAGENET_STD)),
     ("convnet", 32, 512, (128,), 2000.0, False, (CIFAR10_MEAN, CIFAR10_STD)),
+    ("mobilenetv2", MNV2_IMAGE, 512, SERVE_BUCKETS, 2.0, True, (IMAGENET_MEAN, IMAGENET_STD)),
 ]
 
 
@@ -327,9 +341,132 @@ def int8_gemm_phase(torch, dev):
         check(bad == 0, f"int8 requantize, scale {scale}: {bad} of {y.numel()} differ from quantize_affine")
         n_div += y.numel()
     err["convnet_static"] = max(err["convnet_static"], err["convnet"])  # conv2-conv6 shared
+    err["grouped"], n_grouped = grouped_check(torch, dev)
     phase("int8_gemm", t0, f"int32 store exact against int8_gemm_plain at {len(shapes)} shapes "
           f"({len(gemms)} of them ResNet-50's at bs{RESNET_BATCH}); the int8 store's division "
-          f"bit-equal to quantize_affine on {n_div} inputs in {len(REQUANTIZE_DOMAINS)} domains")
+          f"bit-equal to quantize_affine on {n_div} inputs in {len(REQUANTIZE_DOMAINS)} domains; "
+          f"the grouped-K mode (W4A8) bit-equal to its plain version in {n_grouped} cases: "
+          f"{', '.join(n for n, *_ in GROUPED_SHAPES)} at g{W4A8_GROUP} and fc1 at g"
+          f"{', '.join(map(str, FC1_GROUPS))}, f32 and int8 stores")
+    return err
+
+
+def grouped_epilogue(torch, dev, g, m, k, n, group, store):
+    """A W4A8 layer's epilogue in the grouped-K mode: 4-bit-range scales
+    and zero-point corrections per group, the activation scale, a bias; the
+    f32 store, or relu and the int8 store."""
+    from quantnet_torch.core.types import ActQuant
+    from quantnet_torch.ops.int8_matmul import Epilogue
+
+    groups = k // group
+    gs = torch.rand((groups, n), generator=g, device=dev) * 1e-2 + 1e-4
+    gzpw = torch.randint(-30000, 30000, (groups, n), generator=g, device=dev, dtype=torch.int32)
+    cs = torch.full((n,), 0.0371, device=dev)
+    bias = torch.randn((n,), generator=g, device=dev)
+    if store == "int8":
+        oq = ActQuant(torch.tensor(0.0613, device=dev), torch.tensor(-11, dtype=torch.int32, device=dev))
+        return Epilogue(cs=cs, bias=bias, act="relu", out=torch.int8, out_quant=oq, group=group,
+                        gs=gs, gzpw=gzpw)
+    return Epilogue(cs=cs, bias=bias, group=group, gs=gs, gzpw=gzpw)
+
+
+def grouped_check(torch, dev):
+    """K1's grouped-K mode against its plain version, bit for bit (compared
+    as integers), on int8 activations and 4-bit weights. Returns (max |diff|,
+    cases)."""
+    from quantnet_torch.ops.int8_matmul import int8_gemm_epilogue, int8_gemm_epilogue_plain
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    cases = [(name, m, k, n, W4A8_GROUP) for name, m, k, n in GROUPED_SHAPES] + [
+        ("convnet_fc1", 1024, 4096, 512, group) for group in FC1_GROUPS if group != W4A8_GROUP]
+    bits = {torch.float32: torch.int32, torch.int8: torch.int8}
+    err, n_cases = 0.0, 0
+    for name, m, k, n, group in cases:
+        a = torch.randint(-128, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        b = torch.randint(-7, 8, (n, k), generator=g, device=dev, dtype=torch.int8)
+        for store in ("f32", "int8"):
+            epi = grouped_epilogue(torch, dev, g, m, k, n, group, store)
+            got = int8_gemm_epilogue(a, b, epi)
+            torch.cuda.synchronize()
+            ref = int8_gemm_epilogue_plain(a, b, epi)
+            bad = int((got.contiguous().view(bits[epi.out]) != ref.view(bits[epi.out])).sum())
+            err = max(err, (got.float() - ref.float()).abs().max().item())
+            check(bad == 0, f"int8_gemm grouped {name} {m}x{k}x{n} g{group} {store}: {bad} of "
+                  f"{ref.numel()} differ from the plain version")
+            n_cases += 1
+    return err, n_cases
+
+
+def mobilenet_dw_shapes(batch: int, image: int):
+    """MobileNetV2 1.0's 17 depthwise convs at (batch, image): (name, input
+    NHWC shape, stride, pads), XLA's SAME pads as the model runs them."""
+    from quantnet_torch.models.mobilenet import block_widths
+    from quantnet_torch.ops.conv import _same_pads
+
+    _, _, blocks = block_widths(1.0)
+    h = -(-image // 2)  # the stem, 3x3/2 SAME
+    out = []
+    for i, (_, hidden, _, stride) in enumerate(blocks):
+        out.append((f"block{i}", (batch, h, h, hidden), stride, _same_pads(h, h, 3, 3, stride)))
+        h = -(-h // stride)
+    return out
+
+
+def depthwise_phase(torch, dev):
+    """K4 against its plain version at MobileNetV2's 17 depthwise shapes at
+    bs256, bit for bit: the int32 accumulator; the static store (zero-point
+    pad, - zpw, relu6, int8 in the consumer's domain); the dynamic store
+    (zero pad, relu6, the bf16 handoff); the int8 store on the requantize's
+    hard inputs: every accumulator an exact multiple of the scale, 1/128 of
+    them on a rounding tie of y / out_s, and (at two shapes) a domain past
+    the fast division's range."""
+    from quantnet_torch.core.types import ActQuant
+    from quantnet_torch.ops.depthwise_conv import depthwise_conv, depthwise_conv_plain
+    from quantnet_torch.ops.int8_matmul import Epilogue
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    bits = {torch.int32: torch.int32, torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.int8: torch.int8}
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    err, n_cases = 0.0, 0
+    shapes = mobilenet_dw_shapes(MNV2_BATCH, MNV2_IMAGE)
+    for i, (name, shape, stride, pads) in enumerate(shapes):
+        c = shape[3]
+        x = torch.randint(-128, 128, shape, generator=g, device=dev, dtype=torch.int8)
+        w = torch.randint(-127, 128, (3, 3, 1, c), generator=g, device=dev, dtype=torch.int8)
+        cs = torch.rand((c,), generator=g, device=dev) * 1e-3 + 1e-5
+        bias = torch.randn((c,), generator=g, device=dev)
+        zpw = torch.randint(-3000, 3000, (c,), generator=g, device=dev, dtype=torch.int32)
+        cases = [
+            ("int32", 0, None),
+            ("static int8", -9, Epilogue(cs=cs, bias=bias, zpw=zpw, act="relu6", out=torch.int8,
+                                         out_quant=ActQuant(f32(0.0517), i32(-3)))),
+            ("dynamic bf16", 0, Epilogue(cs=cs, bias=bias, act="relu6", out=torch.bfloat16)),
+            ("ties int8", -9, Epilogue(cs=torch.full((c,), 2.0**-14, device=dev), zpw=zpw,
+                                       out=torch.int8, out_quant=ActQuant(f32(2.0**-7), i32(5)))),
+        ]
+        if i < 2:
+            cases.append(("slow int8", 0, Epilogue(cs=torch.full((c,), 2.0**-80, device=dev),
+                                                   out=torch.int8,
+                                                   out_quant=ActQuant(f32(2.0**-70), i32(3)))))
+        for kind, pad_value, epi in cases:
+            got = depthwise_conv(x, w, stride, pads, pad_value, epi)
+            torch.cuda.synchronize()
+            ref = depthwise_conv_plain(x, w, stride, pads, pad_value, epi)
+            check(got.dtype == ref.dtype and got.shape == ref.shape,
+                  f"depthwise {name} {kind}: {got.dtype}{tuple(got.shape)}")
+            bad = int((got.view(bits[got.dtype]) != ref.view(bits[ref.dtype])).sum())
+            err = max(err, (got.float() - ref.float()).abs().max().item())
+            check(bad == 0, f"depthwise_conv {name} {tuple(shape)} stride {stride} {kind}: {bad} of "
+                  f"{ref.numel()} differ from the plain version")
+            n_cases += 1
+        del x, got, ref
+    phase("depthwise", t0, f"K4 bit-equal to depthwise_conv_plain in {n_cases} cases: MobileNetV2's "
+          f"{len(shapes)} depthwise shapes at bs{MNV2_BATCH} {MNV2_IMAGE}x{MNV2_IMAGE} (C 32 to 960, "
+          "stride 1 and 2), the int32 accumulator, the static int8 and dynamic bf16 stores with "
+          "relu6, the int8 store on rounding ties and past the fast division's range")
     return err
 
 
@@ -393,7 +530,7 @@ def fused_phase(torch, dev):
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     n_cases = 0
-    for name, m, k, n, _ in FC_SHAPES:
+    for name, m, k, n, _ in FC_SHAPES + [("mobilenetv2_fc", MNV2_BATCH, 1280, 1000, "bfloat16")]:
         for dtype in ("float32", "bfloat16"):
             x, w, w_scale, bias = fused_inputs(torch, dev, m, k, n, g, dtype)
             edge = fused_dynamic_cases(m, k, getattr(torch, dtype), dev)
@@ -410,8 +547,9 @@ def fused_phase(torch, dev):
                           f"{(got - ref).abs().max().item()!r}")
                     n_cases += 1
     phase("fused", t0, f"bit-equal to fused_dynamic_gemm_plain in {n_cases} cases: fc1 and fc2 "
-          f"at bs{' and bs'.join(map(str, FC_BATCHES))}, f32 and bf16 x, relu on and off, "
-          "random x and fused_dynamic_cases")
+          f"at bs{' and bs'.join(map(str, FC_BATCHES))}, MobileNetV2's fc at bs{MNV2_BATCH} "
+          "(K = 1280: two 512-wide K-blocks and a zero-padded one), f32 and bf16 x, relu on and "
+          "off, random x and fused_dynamic_cases")
     return 0.0
 
 
@@ -467,13 +605,61 @@ def _time_k1_fused(torch, a, b, epi, iters):
     return ms, unfused, plain
 
 
+def _time_k1_grouped(torch, a, b, epi, iters):
+    """(kernel, unfused route, plain) ms of one launch of K1's grouped-K
+    mode: the fused launch; the route it replaces, one int32 launch of K1
+    per group on the group's K-slice (sliced beforehand) and the combine in
+    PyTorch ops; the plain version."""
+    from quantnet_torch.ops.int8_matmul import (
+        finish_epilogue,
+        grouped_accumulate,
+        int8_gemm,
+        int8_gemm_epilogue,
+        int8_gemm_epilogue_plain,
+    )
+
+    k, grp = a.shape[1], epi.group
+    slices = {lo: (a[:, lo:lo + grp].contiguous(), b[:, lo:lo + grp].contiguous())
+              for lo in range(0, k, grp)}
+
+    def unfused():
+        y = grouped_accumulate(lambda lo, hi: int8_gemm(*slices[lo]), k, epi)
+        return finish_epilogue(y * epi.cs, epi)
+
+    ms = time_ms(lambda: int8_gemm_epilogue(a, b, epi), iters)
+    unfused_ms = time_ms(unfused, iters)
+    plain = time_ms(lambda: int8_gemm_epilogue_plain(a, b, epi), max(iters // 4, 3))
+    return ms, unfused_ms, plain
+
+
 def _k1_fused_bytes(a, b, epi) -> int:
-    """A and B read once, the per-column (and per-row) vectors read once,
-    the output written once in its own type."""
+    """A and B read once, the per-column (and per-row, and the grouped
+    mode's per-group) vectors read once, the output written once in its own
+    type."""
     m, n = a.shape[0], b.shape[0]
-    vectors = sum(t.numel() * t.element_size() for t in (epi.cs, epi.bias, epi.zpw, epi.rs)
-                  if t is not None)
+    vectors = sum(t.numel() * t.element_size()
+                  for t in (epi.cs, epi.bias, epi.zpw, epi.rs, epi.gs, epi.gzpw) if t is not None)
     return a.numel() + b.numel() + vectors + m * n * epi.out.itemsize
+
+
+def _time_depthwise(torch, x, w, stride, pads, pad_value, epi, iters):
+    """(kernel as launched, int32 store, plain, library) ms of one K4 call:
+    its fused store, its int32 store, the plain version, and one F.conv2d of
+    the values widened to f32 (NCHW, pre-padded, groups = C, TF32 off)."""
+    import torch.nn.functional as F
+
+    from quantnet_torch.ops.depthwise_conv import depthwise_conv, depthwise_conv_plain
+
+    ms = time_ms(lambda: depthwise_conv(x, w, stride, pads, pad_value, epi), iters)
+    int32_ms = time_ms(lambda: depthwise_conv(x, w, stride, pads, pad_value), iters)
+    plain = time_ms(lambda: depthwise_conv_plain(x, w, stride, pads, pad_value, epi), max(iters // 4, 3))
+    (pt, pb), (pl, pr) = pads
+    xf = F.pad(x.float().permute(0, 3, 1, 2), (pl, pr, pt, pb), value=float(pad_value)).contiguous()
+    wf = w.float().permute(3, 2, 0, 1).contiguous()
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=True, benchmark=False, deterministic=False, allow_tf32=False):
+        lib = time_ms(lambda: F.conv2d(xf, wf, stride=stride, groups=x.shape[3]), iters)
+    return ms, int32_ms, plain, lib
 
 
 def k2_operands(torch, m):
@@ -502,28 +688,31 @@ def k2_operands(torch, m):
     return found
 
 
-def times_phase(torch, dev, k1_calls, models):
+def times_phase(torch, dev, k1_calls, dw_calls, models):
     """Per-shape times; returns the per-forward sums of each kernel: K1 on
-    the convnet and on ResNet-50 (its int32 store, and as the path launches
-    it), K2 on the convnet at each of FC_BATCHES (and its ms on the forward's
-    own inputs, and its host cost), K3 on ResNet-50."""
+    each path (its int32 store, and as the path launches it; the grouped-K
+    mode apart), K2 on the convnet at each of FC_BATCHES (and its ms on the
+    forward's own inputs, and its host cost) and at MobileNetV2's fc, K3 on
+    ResNet-50, K4 on MobileNetV2."""
     from quantnet_torch.ops.fused_dynamic_matmul import fused_dynamic_gemm, fused_dynamic_gemm_plain
     from quantnet_torch.ops.int8_matmul import int8_gemm
     from quantnet_torch.ops.residual_boundary import residual_boundary, residual_boundary_plain
 
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
-    k1_int32 = {path: _sums() for path in k1_calls}
-    k1 = {path: _sums() for path in k1_calls}
+    k1_int32 = {path: _sums() for path in K1_PATHS}
+    k1 = {path: _sums() for path in K1_PATHS}
+    k1g = _sums()
     k2 = {batch: _sums() for batch in FC_BATCHES}
     k2_own = {batch: 0.0 for batch in FC_BATCHES}
     k3 = _sums()
+    k4, k4_int32 = _sums(), _sums()
     gemms, boundaries = resnet_shapes(RESNET_BATCH, RESNET_IMAGE)
     # The int32 store at the K the kernel runs (conv1's 27 padded to 32;
     # the padded bytes count in the bound).
     int32_shapes = [("convnet", 1, m, -(-k // 16) * 16, n, 30) for _, m, k, n in CONV_SHAPES] + [
-        ("convnet_static", count, m, k, n, 30)
-        for (m, k, n, _), (count, *_) in sorted(k1_calls["convnet_static"].items())] + [
+        (path, count, m, k, n, 30) for path in ("convnet_static", "mobilenetv2")
+        for (m, k, n, _), (count, *_) in sorted(k1_calls[path].items())] + [
         ("resnet50", count, m, k, n, 30) for (m, k, n), count in sorted(gemms.items())]
     for path, count, m, k, n, iters in int32_shapes:
         ms, plain, lib = _time_int8_gemm(torch, dev, g, m, k, n, iters)
@@ -541,30 +730,40 @@ def times_phase(torch, dev, k1_calls, models):
     print(f"  host cost of one call: int8_gemm {host['int8_gemm']:.2f} us and torch._int_mm "
           f"{host['torch._int_mm']:.2f} us at 128x64x64, fused_dynamic_gemm "
           f"{host['fused_dynamic_gemm']:.2f} us at 64x512x10")
-    for path, calls in k1_calls.items():
-        for (m, k, n, store), (count, a, b, epi) in sorted(calls.items()):
-            ms, unfused, plain = _time_k1_fused(torch, a, b, epi, 20)
+    for path in K1_PATHS + ("convnet_w4a8",):
+        for (m, k, n, store), (count, a, b, epi) in sorted(k1_calls[path].items()):
+            grouped = epi.group is not None
+            if path not in K1_PATHS and not grouped:
+                continue  # the W4A8 convnet's convs: the static sibling's shapes
+            timer = _time_k1_grouped if grouped else _time_k1_fused
+            ms, unfused, plain = timer(torch, a, b, epi, 20)
             nbytes, ops = _k1_fused_bytes(a, b, epi), 2 * m * n * k
             print(f"  int8_gemm {path} {store} {m}x{k}x{n} x{count}: kernel {ms:.4f} ms, bound "
                   f"{bound(nbytes, ops)[0]:.4f} ms ({bound(nbytes, ops)[1]}), unfused route "
                   f"{unfused:.4f} ms, plain {plain:.4f} ms")
-            _add(k1[path], count, ms, plain, nbytes, ops, unfused)
+            _add(k1g if grouped else k1[path], count, ms, plain, nbytes, ops, unfused)
     own = k2_operands(torch, models["convnet"])
-    for name, m, k, n, dtype in FC_SHAPES:
+    k2_shapes = FC_SHAPES + [("mobilenetv2_fc", MNV2_BATCH, 1280, 1000, "bfloat16")]
+    k2_mnv2 = _sums()
+    for name, m, k, n, dtype in k2_shapes:
         args = fused_inputs(torch, dev, m, k, n, g, dtype) + (name == "fc1",)  # fc1's relu
         ms = time_ms(lambda: fused_dynamic_gemm(*args))
         plain = time_ms(lambda: fused_dynamic_gemm_plain(*args))
-        own_args = own[m][name]
-        check(tuple(own_args[0].shape) == (m, k) and own_args[0].dtype == args[0].dtype,
-              f"{name} bs{m} takes {tuple(own_args[0].shape)} {own_args[0].dtype} in the forward")
-        own_ms = time_ms(lambda: fused_dynamic_gemm(*own_args))
         nbytes = args[0].element_size() * m * k + k * n + 8 * n + 4 * m * n
         ops = 2 * m * n * k
-        print(f"  fused_dynamic_gemm {name} {m}x{k}x{n} {dtype} x: kernel {ms:.4f} ms (on the "
-              f"forward's own input {own_ms:.4f} ms), bound {bound(nbytes, ops)[0]:.4f} ms "
-              f"({bound(nbytes, ops)[1]}), plain {plain:.4f} ms")
-        _add(k2[m], 1, ms, plain, nbytes, ops)
-        k2_own[m] += own_ms
+        own_ms = None
+        if name in ("fc1", "fc2"):
+            own_args = own[m][name]
+            check(tuple(own_args[0].shape) == (m, k) and own_args[0].dtype == args[0].dtype,
+                  f"{name} bs{m} takes {tuple(own_args[0].shape)} {own_args[0].dtype} in the forward")
+            own_ms = time_ms(lambda: fused_dynamic_gemm(*own_args))
+            _add(k2[m], 1, ms, plain, nbytes, ops)
+            k2_own[m] += own_ms
+        else:
+            _add(k2_mnv2, 1, ms, plain, nbytes, ops)
+        print(f"  fused_dynamic_gemm {name} {m}x{k}x{n} {dtype} x: kernel {ms:.4f} ms"
+              f"{'' if own_ms is None else f' (on the forward own input {own_ms:.4f} ms)'}, bound "
+              f"{bound(nbytes, ops)[0]:.4f} ms ({bound(nbytes, ops)[1]}), plain {plain:.4f} ms")
     for (shape, i8), count in sorted(boundaries.items()):
         args = boundary_inputs(torch, dev, shape, i8, g)
         ms = time_ms(lambda: residual_boundary(*args))
@@ -578,16 +777,40 @@ def times_phase(torch, dev, k1_calls, models):
               f"x{count}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms (bytes), plain {plain:.4f} ms")
         _add(k3, count, ms, plain, nbytes, 0)
         k3["ops_ms"] += count * ops / F32_OPS_PER_S * 1e3
+    for (shape, stride, store), (count, x, w, _, pads, pad_value, epi) in sorted(
+            dw_calls["mobilenetv2"].items()):
+        ms, int32_ms, plain, lib = _time_depthwise(torch, x, w, stride, pads, pad_value, epi, 20)
+        out = (shape[0] * (-(-shape[1] // stride)) * (-(-shape[2] // stride)) * shape[3])
+        vectors = sum(t.numel() * t.element_size() for t in (epi.cs, epi.bias, epi.zpw) if t is not None)
+        # x read once, the weight and the vectors read once, y written once;
+        # 2 x 9 integer operations per output on the CUDA cores (not the
+        # tensor cores: held to the f32 rate), so bound by bytes at every shape.
+        nbytes, ops = math.prod(shape) + w.numel() + vectors + out * epi.out.itemsize, 18 * out
+        nbytes32 = math.prod(shape) + w.numel() + 4 * out
+        b_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+        print(f"  depthwise_conv {'x'.join(map(str, shape))} stride {stride} {store} x{count}: kernel "
+              f"{ms:.4f} ms, int32 store {int32_ms:.4f} ms, bound {b_ms:.4f} ms (bytes), plain "
+              f"{plain:.4f} ms, F.conv2d f32 {lib:.4f} ms")
+        for acc, t, nb in ((k4, ms, nbytes), (k4_int32, int32_ms, nbytes32)):
+            _add(acc, count, t, plain, nb, 0, lib)
+            acc["ops_ms"] += count * ops / F32_OPS_PER_S * 1e3
+            acc["bound_ms"] += count * max(0.0, ops / F32_OPS_PER_S * 1e3 - nb / HBM_BYTES_PER_S * 1e3)
     per_path = "; ".join(
         f"int8_gemm {p} int32 {k1_int32[p]['ms']:.4f} ms (bound {k1_int32[p]['bound_ms']:.4f}, "
         f"torch._int_mm {k1_int32[p]['library_ms']:.4f}), as launched {k1[p]['ms']:.4f} ms (bound "
-        f"{k1[p]['bound_ms']:.4f}, unfused route {k1[p]['library_ms']:.4f})" for p in k1)
+        f"{k1[p]['bound_ms']:.4f}, unfused route {k1[p]['library_ms']:.4f})"
+        for p in K1_PATHS)
     per_batch = "; ".join(
         f"fused_dynamic_gemm bs{bt} {k2[bt]['ms']:.4f} ms (own inputs {k2_own[bt]:.4f}, bound "
         f"{k2[bt]['bound_ms']:.4f}, plain {k2[bt]['plain_ms']:.4f})" for bt in FC_BATCHES)
-    phase("times", t0, f"per forward: {per_path}; {per_batch}; residual_boundary "
-          f"{k3['ms']:.4f} ms (bound {k3['bound_ms']:.4f}, plain {k3['plain_ms']:.4f}); host "
-          f"cost per call int8_gemm {host['int8_gemm']:.2f} us, fused_dynamic_gemm "
+    phase("times", t0, f"per forward: {per_path}; int8_gemm grouped (W4A8 convnet) {k1g['ms']:.4f} ms "
+          f"(bound {k1g['bound_ms']:.4f}, unfused route {k1g['library_ms']:.4f}, plain "
+          f"{k1g['plain_ms']:.4f}); {per_batch}; fused_dynamic_gemm mobilenetv2 fc "
+          f"{k2_mnv2['ms']:.4f} ms (bound {k2_mnv2['bound_ms']:.4f}); residual_boundary "
+          f"{k3['ms']:.4f} ms (bound {k3['bound_ms']:.4f}, plain {k3['plain_ms']:.4f}); "
+          f"depthwise_conv mobilenetv2 {k4['ms']:.4f} ms (int32 store {k4_int32['ms']:.4f}, bound "
+          f"{k4['bound_ms']:.4f}, plain {k4['plain_ms']:.4f}, F.conv2d f32 {k4['library_ms']:.4f}); "
+          f"host cost per call int8_gemm {host['int8_gemm']:.2f} us, fused_dynamic_gemm "
           f"{host['fused_dynamic_gemm']:.2f} us, torch._int_mm {host['torch._int_mm']:.2f} us")
     first = FC_BATCHES[0]
     k2_entry = dict(k2[first], own_ms=k2_own[first], host_us=host["fused_dynamic_gemm"])
@@ -595,20 +818,26 @@ def times_phase(torch, dev, k1_calls, models):
         k2_entry.update({f"bs{bt}_ms": k2[bt]["ms"], f"bs{bt}_own_ms": k2_own[bt],
                          f"bs{bt}_bound_ms": k2[bt]["bound_ms"],
                          f"bs{bt}_plain_ms": k2[bt]["plain_ms"]})
-    return k1_int32, k1, k2_entry, k3
+    k2_entry.update(mobilenetv2_fc_ms=k2_mnv2["ms"], mobilenetv2_fc_bound_ms=k2_mnv2["bound_ms"],
+                    mobilenetv2_fc_plain_ms=k2_mnv2["plain_ms"])
+    k4_entry = dict(k4, int32_ms=k4_int32["ms"], int32_bound_ms=k4_int32["bound_ms"])
+    return k1_int32, k1, k1g, k2_entry, k3, k4_entry
 
 
 def build_models(torch, dev):
-    """The three paths' models as a user builds them, from seeds: the
-    dynamic-INT8 convnet (init -> BN fold -> dynamic quantize) with a bs1024
-    batch; its static-INT8 sibling (the same weights, BN fold -> min-max
-    calibration on 32 images -> bake, fp32 stem) with a bs1024 batch, as
-    quantnet_torch.entry.static_entry builds it; and the static-INT8
-    ResNet-50 (init -> BN fold -> min-max calibration on 32 images -> bake,
-    fp32 stem) with a bs128 batch at 224x224."""
-    from quantnet_torch.entry import static_entry
-    from quantnet_torch.models import convnet, resnet
-    from quantnet_torch.quantize import dynamic, static
+    """The paths' models as a user builds them, from seeds: the dynamic-INT8
+    convnet (init -> BN fold -> dynamic quantize) with a bs1024 batch; its
+    static-INT8 sibling (the same weights, BN fold -> min-max calibration on
+    32 images -> bake, fp32 stem) with a bs1024 batch, as
+    quantnet_torch.entry.static_entry builds it, and its W4A8 bake from the
+    same calibration; the static-INT8 ResNet-50 (init -> BN fold -> min-max
+    calibration on 32 images -> bake, fp32 stem) with a bs128 batch at
+    224x224, and the same with an int8 stem, 7x7 and space-to-depth; and
+    MobileNetV2 at 224x224, bs256, static (int8 stem) and dynamic, as
+    quantnet_torch.entry.mobilenet_entry builds it."""
+    from quantnet_torch.entry import mobilenet_entry, resnet_entry, static_entry
+    from quantnet_torch.models import convnet, mobilenet, resnet
+    from quantnet_torch.quantize import dynamic, fold, static
 
     t0 = time.perf_counter()
     params, state = convnet.init(torch.Generator().manual_seed(SEED), device=dev)
@@ -629,28 +858,68 @@ def build_models(torch, dev):
     torch.cuda.synchronize()
     models["resnet50"] = dict(apply=resnet.apply, params=params, state=state, q=qparams,
                               qs=qstate, x=x, set_up_s=time.perf_counter() - t1)
-    phase("models", t0, f"convnet and convnet_static bs{BATCH}, resnet50 bs{RESNET_BATCH} {RESNET_IMAGE}x"
-          f"{RESNET_IMAGE} (set-up {models['resnet50']['set_up_s']:.2f} s)")
+    # W4A8: the static sibling's weights and calibration, 4-bit weights, the
+    # dense layers grouped (g128) through K1's grouped-K mode.
+    cp, cs = models["convnet"]["params"], models["convnet"]["state"]
+    fparams, fstate = fold.fold_model(cp, cs)
+    calib = torch.randn((RESNET_CALIBRATION, 32, 32, 3),
+                        generator=torch.Generator().manual_seed(SEED + 1)).to(dev)
+    act = static.calibrate(convnet.apply, fparams, fstate, [calib])
+    wq, wqs = static.bake(fparams, fstate, act, skip_first_layer=True, weight_bits=4,
+                          weight_group_size=W4A8_GROUP)
+    models["convnet_w4a8"] = dict(apply=convnet.apply, params=cp, state=cs, q=wq, qs=wqs,
+                                  x=models["convnet_static"]["x"])
+    # MobileNetV2 1.0 at 224x224, bs256: static INT8 (int8 stem) and dynamic.
+    t2 = time.perf_counter()
+    for name, scheme in (("mobilenetv2", "static"), ("mobilenetv2_dynamic", "dynamic")):
+        _, (q, qs, x) = mobilenet_entry(dev, scheme=scheme, batch_size=MNV2_BATCH, image_size=MNV2_IMAGE,
+                                        calibration_size=RESNET_CALIBRATION, seed=SEED)
+        models[name] = dict(apply=mobilenet.apply, q=q, qs=qs, x=x)
+    mp, ms = mobilenet.init(torch.Generator().manual_seed(SEED), device=dev)
+    for name in ("mobilenetv2", "mobilenetv2_dynamic"):
+        models[name].update(params=mp, state=ms)
+    torch.cuda.synchronize()
+    models["mobilenetv2"]["set_up_s"] = time.perf_counter() - t2
+    # ResNet-50 with the space-to-depth stem, and the 7x7 tree it is held
+    # against, both with an int8 stem (K1 at K = 192 and at K = 147 padded).
+    for name, s2d in (("resnet50_s2d", True), ("resnet50_7x7_int8", False)):
+        _, (q, qs, x) = resnet_entry(dev, batch_size=RESNET_BATCH, image_size=RESNET_IMAGE,
+                                     calibration_size=RESNET_CALIBRATION, seed=SEED, s2d=s2d,
+                                     skip_first_layer=False)
+        models[name] = dict(apply=resnet.apply, q=q, qs=qs, x=x)
+    torch.cuda.synchronize()
+    phase("models", t0, f"convnet, convnet_static and convnet_w4a8 bs{BATCH}, resnet50 bs{RESNET_BATCH} "
+          f"{RESNET_IMAGE}x{RESNET_IMAGE} (set-up {models['resnet50']['set_up_s']:.2f} s) with the 7x7 "
+          f"and the s2d int8 stem, mobilenetv2 static and dynamic bs{MNV2_BATCH} {MNV2_IMAGE}x"
+          f"{MNV2_IMAGE} (set-up {models['mobilenetv2']['set_up_s']:.2f} s)")
     return models
 
 
 def _store_name(epi) -> str:
+    if epi is None:
+        return "int32"
     parts = [str(epi.out).rsplit(".", 1)[-1]]
     parts += [n for n in ("zpw", "rs", "bias") if getattr(epi, n) is not None]
-    return " ".join(parts + (["relu"] if epi.relu else []))
+    if epi.group is not None:
+        parts.append(f"grouped g{epi.group}")
+    return " ".join(parts + ([epi.act] if epi.act else []))
 
 
 def k1_stores_phase(torch, models):
     """One forward of each model with every K1 launch held against
-    int8_gemm_epilogue_plain on the same inputs, bit for bit (compared as
-    integers, so -0 against +0 would count). Returns, per path, the calls by
-    (M, K, N, store) with their count and one call's inputs, for [times]."""
+    int8_gemm_epilogue_plain, and every K4 launch against
+    depthwise_conv_plain, on the same inputs, bit for bit (compared as
+    integers, so -0 against +0 would count). Returns, per path, the K1 calls
+    by (M, K, N, store) with their count and one call's inputs, and
+    MobileNetV2's K4 calls the same way, for [times]."""
+    from quantnet_torch.ops import conv as ops_conv
     from quantnet_torch.ops import linear as ops_linear
+    from quantnet_torch.ops.depthwise_conv import depthwise_conv, depthwise_conv_plain
     from quantnet_torch.ops.int8_matmul import int8_gemm_epilogue, int8_gemm_epilogue_plain
 
     t0 = time.perf_counter()
     bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.int8: torch.int8}
-    calls = {}
+    calls, dw_calls, errs = {}, {}, {}
 
     def checked(a, b, epi):
         got = int8_gemm_epilogue(a, b, epi)
@@ -660,24 +929,42 @@ def k1_stores_phase(torch, models):
         check(got.dtype == ref.dtype and bad == 0,
               f"int8_gemm_epilogue {key}: {bad} of {ref.numel()} differ from the plain version")
         calls.setdefault(key, [0, a, b, epi])[0] += 1
+        errs["k1"] = max(errs["k1"], (got.float() - ref.float()).abs().max().item())
         return got
 
-    found = {}
+    def dw_checked(x, w, stride, pads, pad_value, epi):
+        got = depthwise_conv(x, w, stride, pads, pad_value, epi)
+        ref = depthwise_conv_plain(x, w, stride, pads, pad_value, epi)
+        key = (tuple(x.shape), stride, _store_name(epi))
+        bad = int((got.view(bits[epi.out]) != ref.view(bits[epi.out])).sum())
+        check(got.dtype == ref.dtype and bad == 0,
+              f"depthwise_conv {key}: {bad} of {ref.numel()} differ from the plain version")
+        dw_calls.setdefault(key, [0, x, w, stride, pads, pad_value, epi])[0] += 1
+        errs["k4"] = max(errs["k4"], (got.float() - ref.float()).abs().max().item())
+        return got
+
+    found, dw_found, errors = {}, {}, {}
     ops_linear.int8_gemm_epilogue = checked
+    ops_conv.depthwise_conv = dw_checked
     try:
         for path, m in models.items():
-            calls = {}
+            calls, dw_calls, errs = {}, {}, {"k1": 0.0, "k4": 0.0}
             m["apply"](m["q"], m["qs"], m["x"])
             torch.cuda.synchronize()
-            found[path] = calls
+            found[path], errors[path] = calls, errs
+            if dw_calls:
+                dw_found[path] = dw_calls
     finally:
         ops_linear.int8_gemm_epilogue = int8_gemm_epilogue
+        ops_conv.depthwise_conv = depthwise_conv
     per_path = "; ".join(
         f"{p} {sum(c[0] for c in v.values())} launches at {len(v)} shapes "
         f"({', '.join(sorted({k[3] for k in v}))})" for p, v in found.items())
+    dw = "; ".join(f"{p} {sum(c[0] for c in v.values())} launches "
+                   f"({', '.join(sorted({k[2] for k in v}))})" for p, v in dw_found.items())
     phase("k1 stores", t0, f"every K1 launch of a forward bit-equal to int8_gemm_epilogue_plain: "
-          f"{per_path}")
-    return found
+          f"{per_path}; every K4 launch bit-equal to depthwise_conv_plain: {dw}")
+    return found, dw_found, errors
 
 
 def main_path_phase(torch, dev, m):
@@ -852,6 +1139,147 @@ def static_phase(torch, dev, m):
     return launches
 
 
+def _launch_counts():
+    """Every wrapper's launch count, by name (K1's grouped-K mode apart)."""
+    from quantnet_torch.ops.depthwise_conv import depthwise_conv
+    from quantnet_torch.ops.fused_dynamic_matmul import fused_dynamic_gemm
+    from quantnet_torch.ops.int8_matmul import int8_gemm
+    from quantnet_torch.ops.residual_boundary import residual_boundary
+
+    return {"int8_gemm": int8_gemm.launches, "int8_gemm_grouped": int8_gemm.grouped_launches,
+            "fused_dynamic_gemm": fused_dynamic_gemm.launches,
+            "residual_boundary": residual_boundary.launches,
+            "depthwise_conv": depthwise_conv.launches}
+
+
+def _zero_launch_counts():
+    from quantnet_torch.ops.depthwise_conv import depthwise_conv
+    from quantnet_torch.ops.fused_dynamic_matmul import fused_dynamic_gemm
+    from quantnet_torch.ops.int8_matmul import int8_gemm
+    from quantnet_torch.ops.residual_boundary import residual_boundary
+
+    int8_gemm.launches = int8_gemm.grouped_launches = 0
+    fused_dynamic_gemm.launches = residual_boundary.launches = depthwise_conv.launches = 0
+
+
+def _path_run(torch, name, m, want, fp32_rel_max, classes):
+    """One forward of a path with every count set to 0 just before it: the
+    launches (held to `want`), finite logits of the expected shape,
+    bit-equal to the plain-version forward, within `fp32_rel_max` relative
+    L2 of the fp32 folded model's. Returns (logits, launches, message)."""
+    from quantnet_torch.core.config import Flags
+    from quantnet_torch.quantize import fold
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    logits, _ = m["apply"](m["q"], m["qs"], m["x"])
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    batch = m["x"].shape[0]
+    check(tuple(logits.shape) == (batch, classes) and logits.dtype == torch.float32,
+          f"[{name}] logits {logits.dtype}{tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), f"[{name}] non-finite logits")
+    check(launches == want, f"[{name}] launches per forward {launches}, expected {want}")
+    ref, _ = m["apply"](m["q"], m["qs"], m["x"], flags=Flags(plain=True))
+    err = (logits - ref).abs().max().item()
+    check(torch.equal(logits.view(torch.int32), ref.view(torch.int32)),
+          f"[{name}] vs plain versions: max |diff| {err} (max|logit| {ref.abs().max().item()}), "
+          "not bit-equal")
+    fparams, fstate = fold.fold_model(m["params"], m["state"])
+    fp32, _ = m["apply"](fparams, fstate, m["x"])
+    rel = ((logits - fp32).norm() / fp32.norm()).item()
+    agree = (logits.argmax(1) == fp32.argmax(1)).float().mean().item()
+    check(rel < fp32_rel_max, f"[{name}] vs fp32 logits: relative L2 {rel} >= {fp32_rel_max}")
+    msg = (f"logits {tuple(logits.shape)} finite; launches {launches}; bit-equal to the plain "
+           f"versions (max|logit| {ref.abs().max().item():.4f}); vs fp32: rel L2 {rel:.4f} (bound "
+           f"{fp32_rel_max}), top-1 agreement {agree:.4f}; peak {peak_gib:.2f} GiB")
+    return logits, launches, msg
+
+
+def _bench_line(torch, m, image, batch, warmup=5, iters=30) -> str:
+    from quantnet_torch.bench.benchmark import InferenceBenchmark
+
+    stats = InferenceBenchmark(image_size=image, warmup=warmup, iters=iters).measure(
+        m["apply"], m["q"], m["qs"], batch)
+    return (f"bs{batch} {image}x{image}: p50 {stats['p50_ms']:.4f} ms, {stats['images_per_s_p50']:.1f} "
+            f"img/s (mean {stats['mean_ms']:.4f} ms, min {stats['min_ms']:.4f}, max "
+            f"{stats['max_ms']:.4f}, {stats['iters']} iters); {_roofline(stats)} on {stats['device']}")
+
+
+def w4a8_phase(torch, m):
+    """The W4A8 convnet at bs1024: the static sibling's int8 handoffs, 4-bit
+    weights, fc1 and fc2 through K1's grouped-K mode (g128)."""
+    t0 = time.perf_counter()
+    want = {"int8_gemm": 7, "int8_gemm_grouped": 2, "fused_dynamic_gemm": 0,
+            "residual_boundary": 0, "depthwise_conv": 0}
+    _, launches, msg = _path_run(torch, "w4a8", m, want, W4A8_FP32_REL_L2_MAX, 10)
+    phase("w4a8", t0, msg)
+    t1 = time.perf_counter()
+    phase("w4a8 bench", t1, _bench_line(torch, m, 32, BATCH, warmup=10, iters=50))
+    return launches
+
+
+def mobilenet_phase(torch, models):
+    """MobileNetV2 1.0 at 224x224, bs256: static INT8 (int8 stem; K1 at the
+    stem, the 16 expand, 17 project and head convs and the fc, K4 at the 17
+    depthwise convs) and dynamic INT8 (the same, the fc through K2)."""
+    out = {}
+    for name, scheme, want in (
+            ("mobilenetv2", "static", {"int8_gemm": 36, "int8_gemm_grouped": 0, "fused_dynamic_gemm": 0,
+                                       "residual_boundary": 0, "depthwise_conv": 17}),
+            ("mobilenetv2_dynamic", "dynamic", {"int8_gemm": 35, "int8_gemm_grouped": 0,
+                                                "fused_dynamic_gemm": 1, "residual_boundary": 0,
+                                                "depthwise_conv": 17})):
+        t0 = time.perf_counter()
+        m = models[name]
+        _, launches, msg = _path_run(torch, name, m, want, MNV2_FP32_REL_L2_MAX, 1000)
+        phase(name, t0, f"{scheme}: {msg}")
+        t1 = time.perf_counter()
+        phase(f"{name} bench", t1, _bench_line(torch, m, MNV2_IMAGE, MNV2_BATCH))
+        out[name] = launches
+    return out
+
+
+def s2d_phase(torch, models):
+    """Static ResNet-50 with the space-to-depth stem (int8 stem, K1 at K =
+    192) at bs128, bit-equal to its plain run, and against the 7x7 tree with
+    an int8 stem calibrated on the same images."""
+    t0 = time.perf_counter()
+    m, ref = models["resnet50_s2d"], models["resnet50_7x7_int8"]
+    check(tuple(m["q"]["conv1"]["w"].shape) == (4, 4, 12, 64), "[resnet50 s2d] the stem is not folded")
+    want = {"int8_gemm": 54, "int8_gemm_grouped": 0, "fused_dynamic_gemm": 0, "residual_boundary": 15,
+            "depthwise_conv": 0}
+    from quantnet_torch.core.config import Flags
+
+    _zero_launch_counts()
+    logits, _ = m["apply"](m["q"], m["qs"], m["x"])
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    check(launches == want, f"[resnet50 s2d] launches per forward {launches}, expected {want}")
+    check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (RESNET_BATCH, 1000),
+          "[resnet50 s2d] logits")
+    plain, _ = m["apply"](m["q"], m["qs"], m["x"], flags=Flags(plain=True))
+    check(torch.equal(logits, plain), f"[resnet50 s2d] vs plain versions: max |diff| "
+          f"{(logits - plain).abs().max().item()}, not bit-equal")
+    other, _ = ref["apply"](ref["q"], ref["qs"], ref["x"])
+    diff = (logits - other).abs().max().item() / other.abs().max().item()
+    rel = ((logits - other).norm() / other.norm()).item()
+    agree = (logits.argmax(1) == other.argmax(1)).float().mean().item()
+    check(diff < S2D_MAX_DIFF and rel < S2D_REL_L2_MAX,
+          f"[resnet50 s2d] vs the 7x7 int8-stem tree: max |diff| {diff} x max|logit| (bound "
+          f"{S2D_MAX_DIFF}), rel L2 {rel} (bound {S2D_REL_L2_MAX})")
+    phase("resnet50 s2d", t0, f"logits {tuple(logits.shape)} finite; launches {launches}; bit-equal "
+          f"to the plain versions; vs the 7x7 int8-stem tree: max |diff| {diff:.6f} x max|logit|, "
+          f"rel L2 {rel:.6f}, top-1 agreement {agree:.4f}")
+    t1 = time.perf_counter()
+    phase("resnet50 s2d bench", t1, _bench_line(torch, m, RESNET_IMAGE, RESNET_BATCH))
+    phase("resnet50 7x7 int8 stem bench", time.perf_counter(),
+          _bench_line(torch, ref, RESNET_IMAGE, RESNET_BATCH))
+    return launches
+
+
 def _host_counts(logits: list, labels, top_k: int = 5):
     """Top-1 and top-k hits counted on the host from the logits' bits."""
     import numpy as np
@@ -885,6 +1313,7 @@ def schemes_phase(torch, dev, models):
         "weight_only": weight_only.quantize(params, state),
         "weight_only_int4": weight_only.quantize(params, state, bits=4, group_size=128),
         "bf16": bf16.quantize(params, state),
+        "w4a8": (models["convnet_w4a8"]["q"], models["convnet_w4a8"]["qs"]),
     }
     x = models["convnet"]["x"][:256]
     build = pathlib.Path(__file__).resolve().parent / "build"
@@ -979,12 +1408,13 @@ def serve_phase(torch, dev, models):
     import numpy as np
 
     from quantnet_torch.bench.trace import kernel_launches, trace
+    from quantnet_torch.ops.depthwise_conv import depthwise_conv
     from quantnet_torch.ops.fused_dynamic_matmul import fused_dynamic_gemm
     from quantnet_torch.ops.int8_matmul import int8_gemm
     from quantnet_torch.ops.residual_boundary import residual_boundary
     from quantnet_torch.serve import InferenceEngine
 
-    wrappers = (int8_gemm, fused_dynamic_gemm, residual_boundary)
+    wrappers = (int8_gemm, fused_dynamic_gemm, residual_boundary, depthwise_conv)
 
     def counted(fn):
         """The wrappers' launch counts over fn(), from 0."""
@@ -1093,10 +1523,45 @@ def observers_phase(torch, dev, m):
     phase("observers", t0, f"static ResNet-50 bs{RESNET_BATCH}, finite logits; " + "; ".join(parts))
 
 
-def cli_phase():
+def torchvision_mobilenet_state_dict(torch, num_classes: int = 10) -> dict:
+    """A torchvision mobilenet_v2 state dict of random weights (the port's
+    init, seed 0), laid out as torchvision names and shapes them: what a user
+    of the reference hands to import-torch."""
+    from quantnet_torch.models import mobilenet
+
+    params, state = mobilenet.init(torch.Generator().manual_seed(SEED), num_classes=num_classes,
+                                   device="cpu")
+    sd = {}
+
+    def conv_bn(conv_key, bn_key, layer, st):
+        sd[f"{conv_key}.weight"] = layer["w"].permute(3, 2, 0, 1).contiguous()  # HWIO -> OIHW
+        sd[f"{bn_key}.weight"], sd[f"{bn_key}.bias"] = layer["bn"]["gamma"], layer["bn"]["beta"]
+        sd[f"{bn_key}.running_mean"], sd[f"{bn_key}.running_var"] = st["mean"], st["var"]
+
+    conv_bn("features.0.0", "features.0.1", params["conv_stem"], state["conv_stem"])
+    names = sorted((k for k in params if k.startswith("block")), key=lambda k: int(k[5:]))
+    for i, name in enumerate(names):
+        bp, bs, t = params[name], state[name], f"features.{i + 1}.conv"
+        if "expand" in bp:
+            conv_bn(f"{t}.0.0", f"{t}.0.1", bp["expand"], bs["expand"])
+            conv_bn(f"{t}.1.0", f"{t}.1.1", bp["dw"], bs["dw"])
+            conv_bn(f"{t}.2", f"{t}.3", bp["project"], bs["project"])
+        else:
+            conv_bn(f"{t}.0.0", f"{t}.0.1", bp["dw"], bs["dw"])
+            conv_bn(f"{t}.1", f"{t}.2", bp["project"], bs["project"])
+    head = f"features.{len(names) + 1}"
+    conv_bn(f"{head}.0", f"{head}.1", params["conv_head"], state["conv_head"])
+    sd["classifier.1.weight"] = params["fc"]["w"].t().contiguous()
+    sd["classifier.1.bias"] = params["fc"]["b"]
+    return sd
+
+
+def cli_phase(torch):
     """The port's CLI in process, on the card, in a temporary directory
     under build/: import-torch of the committed reference checkpoint ->
-    quantize --scheme static -> evaluate -> bench -> serve --wire u8."""
+    quantize --scheme static -> evaluate -> bench -> serve --wire u8; then
+    import-torch of a torchvision mobilenet_v2 state dict written there ->
+    quantize --scheme w4a8 -> evaluate -> bench -> serve --wire u8."""
     import pathlib
     import tempfile
 
@@ -1122,6 +1587,28 @@ def cli_phase():
           f"{acc['fp32']['top1']:.4f}, static {acc['static']['top1']:.4f}) -> bench (static bs1024 "
           f"p50 {bench['static']['bs1024']['p50_ms']:.4f} ms) -> serve u8 (256 requests, "
           f"{256 / served['seconds']:.1f} req/s)")
+
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=root / "build") as d:
+        ckpt = f"{d}/mobilenet_v2.pth"
+        torch.save(torchvision_mobilenet_state_dict(torch), ckpt)
+        args = ["--model", "mobilenetv2", "--save-dir", f"{d}/saved", "--results-dir", f"{d}/results",
+                "--data-dir", f"{d}/data", "--synthetic-train-size", "1024", "--synthetic-test-size",
+                "1024"]
+        cli(["import-torch", "--ckpt", ckpt, *args])
+        cli(["quantize", "--scheme", "w4a8", "--calibration-batches", "2", *args])
+        acc = cli(["evaluate", *args])
+        bench = cli(["bench", "--batch-sizes", "1,32,256", "--warmup", "3", "--iters", "20", *args])
+        served = cli(["serve", "--scheme", "w4a8", "--wire", "u8", "--requests", "256", *args])
+    check(set(acc) == {"fp32", "w4a8"} and all(r["n"] == 1024 for r in acc.values()),
+          f"[cli mobilenetv2] evaluate: {sorted(acc)}")
+    check(set(bench) == {"fp32", "w4a8"} and all(
+        bench[n][f"bs{b}"]["p50_ms"] > 0 for n in bench for b in (1, 32, 256)), "[cli mobilenetv2] bench")
+    check(served["stats"]["requests"] == 256 and served["name"] == "w4a8", "[cli mobilenetv2] serve")
+    phase("cli mobilenetv2", t1, f"import-torch (torchvision mobilenet_v2 state dict) -> quantize "
+          f"w4a8 -> evaluate (top-1 fp32 {acc['fp32']['top1']:.4f}, w4a8 {acc['w4a8']['top1']:.4f}) -> "
+          f"bench (w4a8 bs256 p50 {bench['w4a8']['bs256']['p50_ms']:.4f} ms at 32x32) -> serve u8 (256 "
+          f"requests, {256 / served['seconds']:.1f} req/s)")
 
 
 def bench_torch_phase():
@@ -1150,20 +1637,24 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     build_phase()
     int8_err = int8_gemm_phase(torch, dev)
+    dw_err = depthwise_phase(torch, dev)
     models = build_models(torch, dev)
-    k1_calls = k1_stores_phase(torch, models)
+    k1_calls, dw_calls, store_errs = k1_stores_phase(torch, models)
     fused_err = fused_phase(torch, dev)
     boundary_err = boundary_phase(torch, dev)
-    k1_int32, k1, k2, k3 = times_phase(torch, dev, k1_calls, models)
-    del k1_calls
+    k1_int32, k1, k1g, k2, k3, k4 = times_phase(torch, dev, k1_calls, dw_calls, models)
+    del k1_calls, dw_calls
     convnet_launches = main_path_phase(torch, dev, models["convnet"])
     static_launches = static_phase(torch, dev, models["convnet_static"])
     resnet_launches = resnet_phase(torch, dev, models["resnet50"])
+    w4a8_launches = w4a8_phase(torch, models["convnet_w4a8"])
+    mnv2_launches = mobilenet_phase(torch, models)
+    s2d_phase(torch, models)
     schemes_phase(torch, dev, models)
     bench_torch_phase()
     serving = serve_phase(torch, dev, models)
     observers_phase(torch, dev, models["resnet50"])
-    cli_phase()
+    cli_phase(torch)
 
     def entry(kname, path, source, replaces, launches, err, sums, library):
         return {
@@ -1203,21 +1694,46 @@ def main() -> int:
         e.update({key: v for key, v in k2.items() if key not in _sums()})
         return e
 
-    # One entry per (kernel, path): K1 runs on the three paths, at other shapes,
+    def grouped_entry(launches):
+        """K1's grouped-K mode (W4A8's dense layers) as the W4A8 convnet
+        launches it (fc1 and fc2, g128). No PyTorch call computes it:
+        unfused_ms is the route it replaces, one int32 launch of K1 per
+        group and the combine in PyTorch ops."""
+        e = entry("int8_gemm_grouped", "convnet_w4a8", "int8_gemm.cu",
+                  "quantnet/ops/pallas_matmul.py:54 (grouped-K mode for quantnet/ops/linear.py:228-253)",
+                  launches, max(int8_err["grouped"], store_errs["convnet_w4a8"]["k1"]), k1g, None)
+        e.update(unfused_ms=k1g["library_ms"])
+        return e
+
+    def k4_entry(launches):
+        """K4 as MobileNetV2 launches it (17 depthwise convs with the int8
+        handoff and relu6), its int32 store beside one F.conv2d of the values
+        in f32 (groups = C, TF32 off)."""
+        e = entry("depthwise_conv", "mobilenetv2", "depthwise_conv.cu",
+                  "none: XLA's native grouped conv (quantnet/ops/conv.py:123-128)", launches,
+                  max(dw_err, store_errs["mobilenetv2"]["k4"]), k4, k4["library_ms"])
+        e.update(int32_ms=k4["int32_ms"], int32_bound_ms=k4["int32_bound_ms"])
+        return e
+
+    int8_err["mobilenetv2"] = store_errs["mobilenetv2"]["k1"]
+    # One entry per (kernel, path): K1 runs on four paths, at other shapes,
     # so each path's launches, times and bound stay comparable across runs.
     kernels = [with_engine(e, e["path"]) for e in (
         k1_entry("convnet", convnet_launches["int8_gemm"]),
         k1_entry("convnet_static", static_launches["int8_gemm"]),
         k1_entry("resnet50", resnet_launches["int8_gemm"]),
+        k1_entry("mobilenetv2", mnv2_launches["mobilenetv2"]["int8_gemm"]),
         k2_entry(convnet_launches["fused_dynamic_gemm"]),
         entry("residual_boundary", "resnet50", "residual_boundary.cu",
               "quantnet/ops/pallas_boundary.py:85", resnet_launches["residual_boundary"],
               boundary_err, k3, None),
-    )]
-    print(f"kernels: int8_gemm exact (int32) and bit-equal (every store) on the three paths; "
-          f"fused_dynamic_gemm and residual_boundary bit-equal; no "
-          "PyTorch call computes K1's fused store, K2 or K3 alone (library: none; "
-          "int32_library_ms is torch._int_mm against K1's int32 store)")
+        k4_entry(mnv2_launches["mobilenetv2"]["depthwise_conv"]),
+    )] + [grouped_entry(w4a8_launches["int8_gemm_grouped"])]
+    print(f"kernels: int8_gemm exact (int32) and bit-equal (every store, the grouped-K mode) on "
+          f"its paths; fused_dynamic_gemm, residual_boundary and depthwise_conv bit-equal; no "
+          "PyTorch call computes K1's fused store, its grouped-K mode, K2 or K3 alone (library: "
+          "none; int32_library_ms is torch._int_mm against K1's int32 store; K4's library_ms is "
+          "F.conv2d in f32 against its int32_ms)")
     print(f"total {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -36,9 +36,11 @@ _P, _I64, _C, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 # C signature of each library's entry point: (function, argtypes).
 SIGNATURES = {
     # int8_gemm(a[M,K] s8, b[N,K] s8, c[M,ldc], M, N, K, ldc, store, cs[N],
-    #           rs[M], bias[N], zpw[N], relu, out_scale, out_zero_point, stream)
+    #           rs[M], bias[N], zpw[N], act, out_scale, out_zero_point,
+    #           gs[G,N], gzpw[G,N], group, stream)
     "int8_gemm": (
-        "int8_gemm", [_P, _P, _P, _I64, _I64, _I64, _I64, _C, _P, _P, _P, _P, _C, _F, _F, _P],
+        "int8_gemm",
+        [_P, _P, _P, _I64, _I64, _I64, _I64, _C, _P, _P, _P, _P, _C, _F, _F, _P, _P, _I64, _P],
     ),
     # fused_dynamic_gemm(x[M,K] f32 or bf16, w[N,ldw] s8, w_scale[N], bias[N],
     #                    out[M,N] f32, M, N, K, ldw, block_k, x_is_bf16, relu,
@@ -46,6 +48,13 @@ SIGNATURES = {
     "fused_dynamic_gemm": (
         "fused_dynamic_gemm",
         [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P],
+    ),
+    # depthwise_conv(x[N,H,W,C] s8, w[3,3,1,C] s8, y[N,Ho,Wo,C], N, H, W, C,
+    #                Ho, Wo, stride, pad_top, pad_left, pad_value, store, cs[C],
+    #                bias[C], zpw[C], act, out_scale, out_zero_point, stream)
+    "depthwise_conv": (
+        "depthwise_conv",
+        [_P, _P, _P, *[_I64] * 10, _C, _P, _P, _P, _C, _F, _F, _P],
     ),
     # residual_boundary(out[n] f32, identity[n] s8 or f32, q[n] s8, n,
     #                   int8_identity, id_scale, id_zero_point, out_scale,
@@ -91,26 +100,35 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, ctypes.CDLL]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
+        log = tmp.with_name(f"{tmp.name}.log")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        pending[name] = (proc, tmp, path, time.perf_counter())
+        with open(log, "w") as out:
+            proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, text=True)
+        pending[name] = (proc, tmp, log, path, time.perf_counter())
     try:
-        for name, (proc, tmp, path, t0) in pending.items():
-            out, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
-            build_seconds[name] = time.perf_counter() - t0
-            build_log[name] = out
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
-            os.replace(tmp, path)
+        # Each library's own build time: the processes are polled together.
+        running = dict(pending)
+        while running:
+            for name, (proc, tmp, log, path, t0) in list(running.items()):
+                if proc.poll() is None:
+                    if time.perf_counter() - t0 > NVCC_TIMEOUT_S:
+                        raise RuntimeError(f"nvcc took more than {NVCC_TIMEOUT_S} s for {name}.cu")
+                    continue
+                del running[name]
+                build_seconds[name] = time.perf_counter() - t0
+                build_log[name] = log.read_text()
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed for {name}.cu:\n{build_log[name]}")
+                os.replace(tmp, path)
+            time.sleep(0.05)
     finally:
-        for proc, tmp, _, _ in pending.values():
+        for proc, tmp, log, _, _ in pending.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-            if tmp.exists():
-                tmp.unlink()
+            for f in (tmp, log):
+                if f.exists():
+                    f.unlink()
     for name in names:
         lib = ctypes.CDLL(str(_library_path(name)))
         fn_name, argtypes = SIGNATURES[name]

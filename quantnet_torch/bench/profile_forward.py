@@ -3,12 +3,15 @@
     python -m quantnet_torch.bench.profile_forward [--batch 1024]
     python -m quantnet_torch.bench.profile_forward --model convnet-static [--batch 1024]
     python -m quantnet_torch.bench.profile_forward --model resnet50 [--batch 128]
+    python -m quantnet_torch.bench.profile_forward --model mobilenetv2 [--batch 256]
     python -m quantnet_torch.bench.profile_forward --model convnet-static --batch 32 --graph
 
 --model convnet (the default) is the dynamic-INT8 SimpleConvNet at 32x32;
 convnet-static its static-INT8 sibling and resnet50 the static-INT8
 ResNet-50 at 224x224, as quantnet_torch.entry's static_entry and
-resnet_entry build them (fp32 stem, min-max calibration on 32 images).
+resnet_entry build them (fp32 stem, min-max calibration on 32 images);
+mobilenetv2 (mobilenetv2-dynamic) the static-INT8 (dynamic-INT8)
+MobileNetV2 at 224x224 as mobilenet_entry builds it (int8 stem).
 
 Traces five forwards after warm-up with torch.profiler (CPU and CUDA
 activity) and prints the device time of every kernel by name, and the
@@ -35,14 +38,16 @@ UNTRACED = 100
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("convnet", "convnet-static", "resnet50"), default="convnet")
-    ap.add_argument("--batch", type=int, default=None, help="1024 (convnets) or 128 (resnet50)")
+    ap.add_argument("--model", default="convnet",
+                    choices=("convnet", "convnet-static", "resnet50", "mobilenetv2", "mobilenetv2-dynamic"))
+    ap.add_argument("--batch", type=int, default=None,
+                    help="1024 (convnets), 128 (resnet50) or 256 (mobilenetv2)")
     ap.add_argument("--graph", action="store_true", help="time replays of a captured forward")
     args = ap.parse_args(argv)
 
     from quantnet_torch.bench.trace import device_rows, trace
     from quantnet_torch.core.config import resolve_device
-    from quantnet_torch.entry import entry, resnet_entry, static_entry
+    from quantnet_torch.entry import entry, mobilenet_entry, resnet_entry, static_entry
 
     dev = resolve_device("cuda")
     card = subprocess.run(
@@ -52,6 +57,10 @@ def main(argv=None) -> int:
     if args.model == "resnet50":
         args.batch = args.batch or 128
         fn, (q, qs, x) = resnet_entry(dev, batch_size=args.batch)
+    elif args.model.startswith("mobilenetv2"):
+        args.batch = args.batch or 256
+        scheme = "dynamic" if args.model.endswith("dynamic") else "static"
+        fn, (q, qs, x) = mobilenet_entry(dev, scheme=scheme, batch_size=args.batch)
     elif args.model == "convnet-static":
         args.batch = args.batch or 1024
         fn, (q, qs, x) = static_entry(dev, batch_size=args.batch)

@@ -17,6 +17,7 @@ KERNELS = {
     "int8_gemm": "int8_gemm_kernel",
     "fused_dynamic_gemm": "fused_dynamic_gemm_kernel",
     "residual_boundary": "residual_boundary_kernel",
+    "depthwise_conv": "depthwise_kernel",
 }
 _PATTERNS = {name: re.compile(rf"(?<!\w){fn}(?!\w)") for name, fn in KERNELS.items()}
 

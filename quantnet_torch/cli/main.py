@@ -3,6 +3,7 @@
 
     python -m quantnet_torch import-torch --ckpt model.pth
     python -m quantnet_torch quantize --scheme static --observer histogram
+    python -m quantnet_torch quantize --scheme w4a8 --int4-group-size 128
     python -m quantnet_torch evaluate --models fp32,static --per-class
     python -m quantnet_torch bench --batch-sizes 1,32,1024
     python -m quantnet_torch serve --scheme static --wire u8
@@ -12,13 +13,13 @@ so either package reads what the other writes. Every stage runs on the card
 (`--device cuda`, the default, which raises where there is none); `--device
 cpu` runs the kernels' plain versions, for tests.
 
-Not ported yet, and refused by name: `train`, `qat`, `report`, `scaling` and
-`experiment`; the w4a8 scheme (ROADMAP Queue 1 item 1, with Queue 2 step 3's
-batched int8 GEMM); the optimized scheme and --equalize, --adaround-steps,
---bias-correct, --int4-guard (Queue 1 item 4); QAT artifacts (Queue 1 item
-5); ImageNet data (Queue 1 item 5); MobileNetV2 (Queue 1 item 3); serving
-over several cards (--data-parallel) and bench's --s4-runtime (Queue 1 item
-6).
+Models: simple_convnet, resnet18/34/50/101/152 and mobilenetv2 (with a width
+suffix, mobilenetv2_0.5). Not ported yet, and refused by name: `train`,
+`qat`, `report`, `scaling` and `experiment`; the optimized scheme and
+--equalize, --adaround-steps, --bias-correct, --int4-guard (ROADMAP Queue 1
+item 1, the accuracy tools); QAT artifacts and ImageNet data (Queue 1 item
+2); serving over several cards (--data-parallel) and bench's --s4-runtime
+(Queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -33,20 +34,19 @@ from typing import Dict, Optional
 
 import numpy as np
 
-SCHEMES = ("bf16", "dynamic", "static", "weight_only", "weight_only_int4")
+SCHEMES = ("bf16", "dynamic", "static", "weight_only", "weight_only_int4", "w4a8")
 RUNNABLE = ("fp32",) + SCHEMES
 # Artifacts the JAX package writes that the port cannot run yet, with the
 # ROADMAP item that brings each.
 LATER = {
-    "w4a8": "ROADMAP Queue 1 item 1 (W4A8, with Queue 2 step 3's batched int8 GEMM)",
-    "optimized": "ROADMAP Queue 1 item 4 (the accuracy tools)",
-    "qat": "ROADMAP Queue 1 item 5 (QAT)",
-    "qat_int4": "ROADMAP Queue 1 item 5 (QAT)",
-    "qat_w4a8": "ROADMAP Queue 1 item 5 (QAT)",
+    "optimized": "ROADMAP Queue 1 item 1 (the accuracy tools)",
+    "qat": "ROADMAP Queue 1 item 2 (QAT)",
+    "qat_int4": "ROADMAP Queue 1 item 2 (QAT)",
+    "qat_w4a8": "ROADMAP Queue 1 item 2 (QAT)",
 }
 NOT_PORTED = (
-    "Not ported yet: the w4a8 scheme (ROADMAP Queue 1 item 1); the optimized scheme and "
-    "--equalize, --adaround-steps, --bias-correct, --int4-guard (Queue 1 item 4)."
+    "Not ported yet: the optimized scheme and --equalize, --adaround-steps, --bias-correct, "
+    "--int4-guard (ROADMAP Queue 1 item 1)."
 )
 
 
@@ -77,7 +77,16 @@ def _apply_fn(name: str, conv1_scale: float = 1.0, torch_pad: bool = False):
             kw["torch_pad"] = True
         return functools.partial(resnet.apply, **kw) if kw else resnet.apply
     if name.startswith("mobilenetv2"):
-        raise SystemExit("MobileNetV2 is not ported yet (ROADMAP Queue 1 item 3)")
+        from quantnet_torch.models import mobilenet
+
+        # An optional width suffix, mobilenetv2_0.5: the width is read off the
+        # weights' shapes, so it only has to parse.
+        if name != "mobilenetv2":
+            try:
+                float(name.split("_", 1)[1])
+            except (IndexError, ValueError):
+                raise SystemExit(f"unknown model {name!r}") from None
+        return functools.partial(mobilenet.apply, torch_pad=True) if torch_pad else mobilenet.apply
     raise SystemExit(f"unknown model {name!r}")
 
 
@@ -96,7 +105,7 @@ def _load_data(args):
         )
         return train, test, None
     raise SystemExit(f"--dataset {args.dataset}: the ImageNet loader is not ported yet "
-                     "(ROADMAP Queue 1 item 5)")
+                     "(ROADMAP Queue 1 item 2)")
 
 
 def _artifact_path(save_dir: str, name: str) -> str:
@@ -122,9 +131,10 @@ def _calibration_batches(train, args):
     return [torch.from_numpy(x).to(args.device) for x in itertools.islice(full, args.calibration_batches)]
 
 
-def _quantize(name, apply_fn, params, state, train, args):
+def _quantize(name, params, state, calibrated, args):
+    """One scheme's tree. The static schemes (static, w4a8) bake from one
+    calibration, `calibrated()`: (folded params, state, activation qparams)."""
     from quantnet_torch.quantize import bf16, dynamic, static, weight_only
-    from quantnet_torch.quantize.fold import fold_model
 
     pc = not args.per_tensor
     if name == "bf16":
@@ -136,11 +146,12 @@ def _quantize(name, apply_fn, params, state, train, args):
     if name == "weight_only_int4":
         return weight_only.quantize(params, state, per_channel=pc, bits=4,
                                     group_size=args.int4_group_size or None)
-    fparams, fstate = fold_model(params, state)
-    act = static.calibrate(
-        apply_fn, fparams, fstate, _calibration_batches(train, args),
-        observer=args.observer, include_output_stats=args.pre_add_quant,
-    )
+    fparams, fstate, act = calibrated()
+    if name == "w4a8":
+        # 4-bit weights in the static int8-activation path, group-wise along
+        # K in dense layers (quantnet/cli/main.py:196-204).
+        return static.bake(fparams, fstate, act, skip_first_layer=args.skip_first_layer,
+                           weight_bits=4, weight_group_size=args.int4_group_size or None)
     return static.bake(
         fparams, fstate, act, per_channel=pc,
         skip_first_layer=args.skip_first_layer, pre_add_quant=args.pre_add_quant,
@@ -148,6 +159,8 @@ def _quantize(name, apply_fn, params, state, train, args):
 
 
 def cmd_quantize(args):
+    from quantnet_torch.quantize import static
+    from quantnet_torch.quantize.fold import fold_model
     from quantnet_torch.train import checkpoint as ckpt
 
     loaded = _load_fp32(args)
@@ -156,10 +169,20 @@ def cmd_quantize(args):
     params, state, meta = loaded
     train, _, _ = _load_data(args)
     apply_fn = _apply_fn(args.model, args.conv1_scale, _torch_pad(meta))
+
+    @functools.lru_cache(maxsize=None)
+    def calibrated():
+        fparams, fstate = fold_model(params, state)
+        act = static.calibrate(
+            apply_fn, fparams, fstate, _calibration_batches(train, args),
+            observer=args.observer, include_output_stats=args.pre_add_quant,
+        )
+        return fparams, fstate, act
+
     for name in SCHEMES:
         if args.scheme not in ("all", name):
             continue
-        qp, qs = _quantize(name, apply_fn, params, state, train, args)
+        qp, qs = _quantize(name, params, state, calibrated, args)
         ckpt.save_artifact(
             _artifact_path(args.save_dir, name), {"params": qp, "state": qs},
             {"model": args.model, "scheme": name, "policy": None},
@@ -318,9 +341,10 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--config", default=None,
                         help="JSON file of {flag_dest: value} defaults (flags override it)")
         sp.add_argument("--model", default=None,
-                        help="simple_convnet | resnet18/34/50/101/152 (default simple_convnet)")
+                        help="simple_convnet | resnet18/34/50/101/152 | mobilenetv2[_<width>] "
+                             "(default simple_convnet)")
         sp.add_argument("--dataset", default="cifar10", choices=["cifar10", "imagenet", "synthetic"],
-                        help="imagenet is not ported yet (ROADMAP Queue 1 item 5)")
+                        help="imagenet is not ported yet (ROADMAP Queue 1 item 2)")
         sp.add_argument("--image-size", type=int, default=None, help="default 32")
         sp.add_argument("--num-classes", type=int, default=None, help="default 10")
         sp.add_argument("--conv1-scale", type=float, default=1.0,
@@ -353,10 +377,10 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--per-tensor", action="store_true",
                     help="per-tensor weight scales instead of per-channel")
     sp.add_argument("--int4-group-size", type=int, default=128,
-                    help="weight_only_int4: rows of K that share a scale in dense layers "
-                         "(0 = per-channel only)")
+                    help="weight_only_int4 and w4a8: rows of K that share a scale in dense "
+                         "layers (0 = per-channel only)")
     sp.add_argument("--skip-first-layer", action="store_true",
-                    help="static: keep the stem in fp32, handing int8 on")
+                    help="static and w4a8: keep the stem in fp32, handing int8 on")
     sp.add_argument("--pre-add-quant", action="store_true",
                     help="static: quantize residual operands before the add in downsample blocks")
     sp.set_defaults(fn=cmd_quantize)

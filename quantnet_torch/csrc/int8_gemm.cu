@@ -35,24 +35,36 @@
 //     zero-pads K and may give C a wider row than N.
 //
 // The epilogue (a template parameter, STORE) reads the accumulators out of
-// the wgmma fragments and applies, in this order and in IEEE f32 without
-// contraction (__fmul_rn / __fadd_rn / __fdiv_rn, no fast math):
-//     acc - zpw[n]                      int32, static layers (zp * colsum)
-//     y = float(acc) * s                 s = cs[n], or rs[m] * cs[n]
-//     y = y + bias[n]                    if a bias
-//     y = relu(y)                        if asked (+0 for -0, as torch.relu)
-// then one store: int32 (no epilogue; the TPU kernel's own function), f32,
-// bf16 (round to nearest even), or int8 = clamp(rint(y / out_s) + out_zp,
-// -128, 127) with the zero point added in f32, as quantize_affine does. Each
-// 128-byte column chunk of a consumer's 64 rows goes through a swizzled
-// staging buffer in shared memory and out by one TMA store (full lines),
-// double-buffered, so the stores drain while the next tile is computed.
+// the wgmma fragments and applies csrc/epilogue.cuh's epilogue, shared with
+// the depthwise conv (K4): acc - zpw[n] (static), float(acc) * s with
+// s = cs[n] or rs[m] * cs[n], + bias[n], then none, relu or relu6 (+0 for
+// -0, as XLA's max and clamp), then one store: int32 (no epilogue; the TPU
+// kernel's own function), f32, bf16 or int8 requantized into the consumer's
+// domain. Each 128-byte column chunk of a consumer's 64 rows goes through a
+// swizzled staging buffer in shared memory and out by one TMA store (full
+// lines), double-buffered, so the stores drain while the next tile is
+// computed.
+//
+// Grouped-K mode (W4A8, quantnet/ops/linear.py:228-253, whose G-batched
+// int8 dot_general is not a Pallas kernel): the weight's scale changes every
+// `group` rows of K, so the reduction splits into G = K / group products,
+// each a K-slice of the same A and B. At each group boundary of the K loop a
+// consumer waits for its wgmmas, folds the int32 accumulator into an f32 one
+// in registers, facc += float(acc - gzpw[g, n]) * gs[g, n] in group order
+// 0..G-1 (the order of the JAX package's jnp.sum over G), and restarts acc
+// at zero; the epilogue then takes facc with s = cs[n] (the activation
+// scale). The (G, M, N) accumulator of the JAX package never reaches device
+// memory. The group is a multiple of 32 (one k32 wgmma) and divides K; the
+// mode runs 64-wide tiles (BN = 64: a second accumulator set in registers,
+// and more tiles for the small-M products of the classifier layers) and
+// stores f32 or int8.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "epilogue.cuh"
 #include "wgmma_s8.cuh"
 
 namespace {
@@ -71,10 +83,11 @@ struct Epilogue {
   const float* rs;      // [M] per-row scale, or null
   const float* bias;    // [N] or null
   const int32_t* zpw;   // [N] or null
-  int relu;
-  float out_s, out_zp;  // the int8 store's domain
-  float out_r;          // RN(1 / out_s), made on the host
-  int div_fast;         // out_s lies where fast_div is exact (see there)
+  qt::Activation act;   // none, relu or relu6
+  qt::OutQuant oq;      // the int8 store's domain
+  const float* gs;      // grouped mode: [G, N] weight scale of each group
+  const int32_t* gzpw;  // grouped mode: [G, N] zero_point * colsum of each group
+  int group;            // grouped mode: K rows of a group; 0 otherwise
 };
 
 template <int STORE>
@@ -206,6 +219,15 @@ __device__ __forceinline__ void named_sync(int id) {
   asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory");
 }
 
+// Whether a tile's store is narrower than a 128-byte row: the int8 store of a
+// 64-wide tile in the grouped mode, which may have more tiles to its right
+// (elsewhere plan() takes 64-wide int8 tiles only for N <= 64, where the
+// row's second half lies past N and TMA skips it). Such a store goes out
+// through a 64-byte box without swizzle, from a staging buffer of 64-byte rows.
+__host__ __device__ constexpr bool narrow_store(int bn, int store, bool grouped) {
+  return grouped && bn == 64 && store == STORE_INT8;
+}
+
 // Chunk geometry of a store: a chunk is one 128-byte row of the staging
 // buffer, CW columns; a tile of BN columns has CHUNKS of them (BN = 64 with
 // int8: one chunk, half of it past N, not stored), each JC 8-column fragment
@@ -242,53 +264,21 @@ __device__ __forceinline__ void load_cols(ChunkCols<PV>& v, const Epilogue& e, i
   }
 }
 
-// The f32 epilogue of one accumulator, given its column's zpw, cs and bias
-// and its row's rs (each used only where the epilogue has it).
-__device__ __forceinline__ float epilogue_value(int acc, int zpw, float cs, float rs, float bias,
+// The f32 epilogue of one accumulator (int32, or f32 in the grouped mode),
+// given its column's zpw, cs and bias and its row's rs (each used only where
+// the epilogue has it).
+template <bool CLIP, typename T>
+__device__ __forceinline__ float epilogue_value(T acc, int zpw, float cs, float rs, float bias,
                                                 const Epilogue& e) {
-  if (e.zpw) acc -= zpw;
   const float s = e.rs ? __fmul_rn(rs, cs) : cs;
-  float y = __fmul_rn(__int2float_rn(acc), s);
-  if (e.bias) y = __fadd_rn(y, bias);
-  if (e.relu) y = y <= 0.0f ? 0.0f : y;  // relu(-0) = +0; NaN passes, as torch.relu
-  return y;
-}
-
-// y / s rounded to nearest even, the bits of __fdiv_rn(y, s), in five
-// branch-free operations from r = RN(1 / s): q0 = RN(y r); then twice
-// q' = RN(q + (y - s q) r), the remainder exact by FMA. q0 is within 2 ulp of
-// y / s, the first step brings it within 1 ulp (faithful), and the second is
-// Markstein's theorem: r within half an ulp of 1 / s and q faithful give
-// RN(q + r (y - s q)) = RN(y / s). That holds while nothing over- or
-// underflows; `slow` is set where y or q0 leave [2^-90, 2^90] (y = 0 gives 0,
-// exact), and the caller then takes __fdiv_rn (s is checked on the host).
-// __fdiv_rn branches to its slow path per element, which keeps the compiler
-// from overlapping the divisions of a chunk: on an H100 the int8 store took
-// about three times as long with it.
-__device__ __forceinline__ float fast_div(float y, float s, float r, bool& slow) {
-  const float q0 = __fmul_rn(y, r);
-  const float q1 = __fmaf_rn(__fmaf_rn(-s, q0, y), r, q0);
-  const float q2 = __fmaf_rn(__fmaf_rn(-s, q1, y), r, q1);
-  const float ay = fabsf(y), aq = fabsf(q0);
-  slow |= !(y == 0.0f || (ay >= 0x1p-90f && ay <= 0x1p90f && aq >= 0x1p-90f && aq <= 0x1p90f));
-  return q2;
-}
-
-// The int8 requantize: clamp(rint(y / out_s) + out_zp, -128, 127), the zero
-// point added in f32 after rounding, as quantize_affine does.
-template <bool FAST>
-__device__ __forceinline__ int8_t requantize(float y, const Epilogue& e, bool& slow) {
-  if (FAST && !e.div_fast) slow = true;
-  const float d = FAST ? fast_div(y, e.out_s, e.out_r, slow) : __fdiv_rn(y, e.out_s);
-  const float q = __fadd_rn(rintf(d), e.out_zp);
-  return static_cast<int8_t>(__float2int_rn(fminf(fmaxf(q, -128.0f), 127.0f)));
+  return qt::epilogue_value<CLIP>(acc, e.zpw != nullptr, zpw, s, e.bias != nullptr, bias, e.act);
 }
 
 // The fragments of chunk q of a consumer's tile, through the epilogue, into
 // the staging buffer in the 128-byte swizzle. FAST: the int8 store divides
 // with fast_div and reports in `slow` where it may not be exact.
-template <int BN, int STORE, bool FAST>
-__device__ __forceinline__ void write_chunk(const int (&acc)[BN / 2], int q, int M, int N, int row0,
+template <int BN, int STORE, bool FAST, bool NARROW, typename T>
+__device__ __forceinline__ void write_chunk(const T (&acc)[BN / 2], int q, int M, int N, int row0,
                                             int n0, const Epilogue& e,
                                             const ChunkCols<Chunks<BN, STORE>::PV>& cols,
                                             const float (&rs)[2], uint8_t* buf, int tid,
@@ -317,15 +307,17 @@ __device__ __forceinline__ void write_chunk(const int (&acc)[BN / 2], int q, int
       const int r = rq + 8 * h;
       const int row = row0 + r;
       const int b = (8 * jj + cq) * ESZ;  // byte column in the chunk
-      uint8_t* dst = buf + r * 128 + ((((b >> 4) ^ (r & 7))) << 4) + (b & 15);
-      const int a0 = acc[4 * j + 2 * h], a1 = acc[4 * j + 2 * h + 1];
+      uint8_t* dst = NARROW ? buf + r * 64 + b : buf + r * 128 + ((((b >> 4) ^ (r & 7))) << 4) + (b & 15);
+      const T a0 = acc[4 * j + 2 * h], a1 = acc[4 * j + 2 * h + 1];
       if constexpr (STORE == STORE_INT32) {
         *reinterpret_cast<int2*>(dst) = make_int2(a0, a1);
       } else {
         float y0 = 0.0f, y1 = 0.0f;  // past M or N: not stored
         if (row < M) {
-          if (col < N) y0 = epilogue_value(a0, zpw.x, cs.x, rs[h], bias.x, e);
-          if (col + 1 < N) y1 = epilogue_value(a1, zpw.y, cs.y, rs[h], bias.y, e);
+          // The int8 store takes relu6's upper clip in its clamp.
+          constexpr bool CLIP = STORE != STORE_INT8;
+          if (col < N) y0 = epilogue_value<CLIP>(a0, zpw.x, cs.x, rs[h], bias.x, e);
+          if (col + 1 < N) y1 = epilogue_value<CLIP>(a1, zpw.y, cs.y, rs[h], bias.y, e);
         }
         if constexpr (STORE == STORE_F32) {
           *reinterpret_cast<float2*>(dst) = make_float2(y0, y1);
@@ -336,8 +328,8 @@ __device__ __forceinline__ void write_chunk(const int (&acc)[BN / 2], int q, int
           *reinterpret_cast<__nv_bfloat162*>(dst) = v;
         } else {
           char2 v;
-          v.x = requantize<FAST>(y0, e, slow);
-          v.y = requantize<FAST>(y1, e, slow);
+          v.x = qt::requantize<FAST>(y0, e.oq, slow);
+          v.y = qt::requantize<FAST>(y1, e.oq, slow);
           *reinterpret_cast<char2*>(dst) = v;
         }
       }
@@ -353,8 +345,8 @@ __device__ __forceinline__ void write_chunk(const int (&acc)[BN / 2], int q, int
 // to Smem::OUT_BUFS stores drain while the next chunks, and the next tile's
 // products, are computed. `cols` holds the first chunk's per-column vectors
 // and `rs` the two rows' per-row scales, read before the products.
-template <int BN, int STORE>
-__device__ __forceinline__ void store_tile(int (&acc)[BN / 2], const CUtensorMap* tmap_c, int M,
+template <int BN, int STORE, bool NARROW, typename T>
+__device__ __forceinline__ void store_tile(T (&acc)[BN / 2], const CUtensorMap* tmap_c, int M,
                                            int N, int row0, int n0, const Epilogue& e,
                                            ChunkCols<Chunks<BN, STORE>::PV> cols,
                                            const float (&rs)[2], uint8_t* stg, int tid,
@@ -371,11 +363,11 @@ __device__ __forceinline__ void store_tile(int (&acc)[BN / 2], const CUtensorMap
     if (tid == 0) tma_store_wait_read<NBUF - 1>();
     named_sync(barrier_id);
     bool slow = false;
-    write_chunk<BN, STORE, true>(acc, q, M, N, row0, n0, e, cols, rs, buf, tid, slow);
+    write_chunk<BN, STORE, true, NARROW>(acc, q, M, N, row0, n0, e, cols, rs, buf, tid, slow);
     // A lane whose division left fast_div's range: the warp writes its part
     // of the chunk again with __fdiv_rn (int8 only).
     if (STORE == STORE_INT8 && __any_sync(~0u, slow))
-      write_chunk<BN, STORE, false>(acc, q, M, N, row0, n0, e, cols, rs, buf, tid, slow);
+      write_chunk<BN, STORE, false, NARROW>(acc, q, M, N, row0, n0, e, cols, rs, buf, tid, slow);
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // visible to TMA
     named_sync(barrier_id);
     if (tid == 0) tma_store(tmap_c, buf, n0 + q * C::JC * 8, row0, l2_policy_evict_first());
@@ -383,7 +375,32 @@ __device__ __forceinline__ void store_tile(int (&acc)[BN / 2], const CUtensorMap
   }
 }
 
-template <int BN, int STORE>
+// Grouped mode: at the end of group gi, acc (this thread's fragments of the
+// tile, columns n0..) folds into facc in f32, facc += float(acc - gzpw[gi, n])
+// * gs[gi, n], and restarts at zero. Columns past N hold zeros on both sides.
+template <int BN>
+__device__ __forceinline__ void fold_group(int (&acc)[BN / 2], float (&facc)[BN / 2], int gi,
+                                           int n0, int N, const Epilogue& e, int tid) {
+  const int32_t* z = e.gzpw + static_cast<size_t>(gi) * N;
+  const float* s = e.gs + static_cast<size_t>(gi) * N;
+  const int cq = 2 * (tid & 3);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + cq;
+    const int z0 = col < N ? __ldg(z + col) : 0, z1 = col + 1 < N ? __ldg(z + col + 1) : 0;
+    const float s0 = col < N ? __ldg(s + col) : 0.0f, s1 = col + 1 < N ? __ldg(s + col + 1) : 0.0f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = 4 * j + 2 * h;
+      facc[i] = __fadd_rn(facc[i], __fmul_rn(__int2float_rn(acc[i] - z0), s0));
+      facc[i + 1] = __fadd_rn(facc[i + 1], __fmul_rn(__int2float_rn(acc[i + 1] - z1), s1));
+      acc[i] = 0;
+      acc[i + 1] = 0;
+    }
+  }
+}
+
+template <int BN, int STORE, bool GROUPED>
 __global__ void __launch_bounds__(THREADS, 1)
     int8_gemm_kernel(const __grid_constant__ CUtensorMap tmap_a,
                      const __grid_constant__ CUtensorMap tmap_b,
@@ -438,6 +455,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint8_t* stg = staging + c * L::OUT_BUFS * L::OUT_BUF;
   unsigned seq = 0;  // chunks stored so far
   int acc[BN / 2];
+  float facc[GROUPED ? BN / 2 : 1];  // grouped mode: the f32 sum over the groups so far
   int stage = 0, prev = 0;
   unsigned phase = 0;
   const int rq = (tid >> 5) * 16 + ((tid & 31) >> 2);  // this thread's first fragment row
@@ -458,6 +476,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    int gi = 0;  // grouped mode: the group in progress
+    if constexpr (GROUPED) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) facc[i] = 0.0f;
+    }
     for (int ks = 0; ks < ksteps; ++ks) {
       mbar_wait(&full[stage], phase);
       const uint8_t* sa = ring + stage * L::STAGE_BYTES + c * 64 * BK;
@@ -467,9 +490,23 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 32; ++kk) {
+        const int k0 = ks * BK + kk * 32;
         // Past K the tile holds zeros: skip those products.
-        if (ks * BK + kk * 32 < K)
+        if (k0 < K) {
           qt::WgmmaS8<BN>::mma(acc, smem_desc(sa + 32 * kk), smem_desc(sb + 32 * kk));
+          if constexpr (GROUPED) {
+            if ((k0 + 32) % epi.group == 0) {  // the group ends here: fold it into facc
+              wgmma_commit();
+              wgmma_wait<0>();
+#pragma unroll
+              for (int i = 0; i < BN / 2; ++i) fence_reg(acc[i]);
+              fold_group<BN>(acc, facc, gi++, n0, N, epi, tid);
+#pragma unroll
+              for (int i = 0; i < BN / 2; ++i) fence_reg(acc[i]);
+              wgmma_fence();
+            }
+          }
+        }
       }
       wgmma_commit();
       // Keep this stage's products in flight; the previous stage's are done,
@@ -483,8 +520,12 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) fence_reg(acc[i]);
     mbar_arrive(&empty[prev]);
-    store_tile<BN, STORE>(acc, &tmap_c, M, N, m0 + 64 * c, n0, epi, cols, rs, stg, tid, 1 + c,
-                          seq);
+    if constexpr (GROUPED)
+      store_tile<BN, STORE, narrow_store(BN, STORE, GROUPED)>(facc, &tmap_c, M, N, m0 + 64 * c, n0,
+                                                              epi, cols, rs, stg, tid, 1 + c, seq);
+    else
+      store_tile<BN, STORE, narrow_store(BN, STORE, GROUPED)>(acc, &tmap_c, M, N, m0 + 64 * c, n0,
+                                                              epi, cols, rs, stg, tid, 1 + c, seq);
   }
   if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
@@ -497,8 +538,8 @@ __global__ void requantize_kernel(const float* __restrict__ y, int8_t* __restric
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const float v = i < n ? y[i] : 0.0f;
   bool slow = false;
-  int8_t r = requantize<true>(v, e, slow);
-  if (__any_sync(~0u, slow)) r = requantize<false>(v, e, slow);
+  int8_t r = qt::requantize<true>(v, e.oq, slow);
+  if (__any_sync(~0u, slow)) r = qt::requantize<false>(v, e.oq, slow);
   if (i < n) q[i] = r;
 }
 
@@ -526,10 +567,10 @@ EncodeTiled encode_tiled() {
 }
 
 // A row-major [rows, cols] matrix of `esize`-byte elements, `ld` elements
-// a row, as TMA tiles of box_rows x (128 bytes), 128-byte swizzle; loads fill
-// zeros past the edges and stores skip them.
+// a row, as TMA tiles of box_rows x (128 bytes), 128-byte swizzle (narrow:
+// 64 bytes, no swizzle); loads fill zeros past the edges and stores skip them.
 bool encode(CUtensorMap* map, const void* base, int esize, int rows, int cols, long long ld,
-            int box_rows) {
+            int box_rows, bool narrow = false) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return false;
   const CUtensorMapDataType type = esize == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
@@ -537,10 +578,12 @@ bool encode(CUtensorMap* map, const void* base, int esize, int rows, int cols, l
                                                 : CU_TENSOR_MAP_DATA_TYPE_INT32;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * esize};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / esize), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>((narrow ? 64 : 128) / esize),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            narrow ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -591,12 +634,13 @@ void fill_plan(Plan& p, const DeviceInfo& d, int M, int N) {
 // 128-wide tiles for the int8 store (its epilogue's registers spill beside
 // 128 accumulators a thread) and where 256-wide ones would leave much of the
 // last wave idle (ResNet-50's 25088 x K x 256 GEMMs: 196 tiles on 132 SMs,
-// against 392); their A tile is read again from L2.
-Plan plan(int M, int N, int store) {
+// against 392); their A tile is read again from L2. The grouped mode takes
+// 64-wide tiles.
+Plan plan(int M, int N, int store, bool grouped) {
   const DeviceInfo& d = device_info();
   Plan p;
   const long long mt = (M + BM - 1) / BM;
-  if (N <= 64)
+  if (N <= 64 || grouped)
     fill_plan<64>(p, d, M, N);
   else if (N <= 128 || store == STORE_INT8 ||
            wave_fill(mt * ((N + 127) / 128), d.sms) > wave_fill(mt * ((N + 255) / 256), d.sms) + 0.15)
@@ -606,15 +650,15 @@ Plan plan(int M, int N, int store) {
   return p;
 }
 
-template <int BN, int STORE>
+template <int BN, int STORE, bool GROUPED = false>
 int launch(const Plan& p, const void* a, const void* b, void* c, int M, int N, int K,
            long long ldc, const Epilogue& epi, cudaStream_t stream) {
   if (p.stages < 2) return ERR_ARGS;
   CUtensorMap ta, tb, tc;
   if (!encode(&ta, a, 1, M, K, K, BM) || !encode(&tb, b, 1, N, K, K, BN) ||
-      !encode(&tc, c, StoreTraits<STORE>::BYTES, M, N, ldc, 64))
+      !encode(&tc, c, StoreTraits<STORE>::BYTES, M, N, ldc, 64, narrow_store(BN, STORE, GROUPED)))
     return ERR_ENCODE;
-  auto kernel = int8_gemm_kernel<BN, STORE>;
+  auto kernel = int8_gemm_kernel<BN, STORE, GROUPED>;
   static int smem_set = 0;  // per instantiation: the opt-in is made once
   if (smem_set < p.smem) {
     const int most = device_info().smem;
@@ -630,6 +674,12 @@ int launch(const Plan& p, const void* a, const void* b, void* c, int M, int N, i
 template <int STORE>
 int dispatch(const Plan& p, const void* a, const void* b, void* c, int M, int N, int K,
              long long ldc, const Epilogue& epi, cudaStream_t s) {
+  if (epi.group) {  // the grouped mode stores f32 or int8, in 64-wide tiles
+    if constexpr (STORE == STORE_F32 || STORE == STORE_INT8)
+      return launch<64, STORE, true>(p, a, b, c, M, N, K, ldc, epi, s);
+    else
+      return ERR_ARGS;
+  }
   if (p.bn == 64) return launch<64, STORE>(p, a, b, c, M, N, K, ldc, epi, s);
   if constexpr (STORE == STORE_INT8) {  // plan() keeps the int8 store at BN <= 128
     return launch<128, STORE>(p, a, b, c, M, N, K, ldc, epi, s);
@@ -647,26 +697,34 @@ int dispatch(const Plan& p, const void* a, const void* b, void* c, int M, int N,
 // [M, ldc] of that type (ldc >= N, ldc * its size % 16 == 0, 16-byte
 // aligned), of which the kernel writes the first N columns. cs: f32[N]
 // (stores 1-3); rs: f32[M] or null; bias: f32[N] or null; zpw: int32[N] or
-// null. Launches on `stream`, allocates nothing, does not synchronize.
-// Returns cudaGetLastError() after the launch, or a negative code if the
-// kernel was not launched.
+// null; act: 0 none, 1 relu, 2 relu6. group > 0 is the grouped mode: gs
+// f32[G, N] and gzpw int32[G, N] with G = K / group, group a multiple of 32
+// that divides K, store 1 or 3, no zpw and no rs. Launches on `stream`,
+// allocates nothing, does not synchronize. Returns cudaGetLastError() after
+// the launch, or a negative code if the kernel was not launched.
 extern "C" int int8_gemm(const void* a, const void* b, void* c, long long M, long long N,
                          long long K, long long ldc, int store, const void* cs, const void* rs,
-                         const void* bias, const void* zpw, int relu, float out_s, float out_zp,
-                         void* stream) {
+                         const void* bias, const void* zpw, int act, float out_s, float out_zp,
+                         const void* gs, const void* gzpw, long long group, void* stream) {
   const long long big = 1LL << 31;
   const int esize = store == STORE_INT8 ? 1 : store == STORE_BF16 ? 2 : 4;
   if (M <= 0 || N <= 0 || K <= 0 || M >= big || N >= big || K >= big || K % 16 != 0 ||
       ldc < N || (ldc * esize) % 16 != 0 || (reinterpret_cast<uintptr_t>(a) & 15) ||
       (reinterpret_cast<uintptr_t>(b) & 15) || (reinterpret_cast<uintptr_t>(c) & 15) ||
-      store < STORE_INT32 || store > STORE_INT8 || (store != STORE_INT32 && !cs))
+      store < STORE_INT32 || store > STORE_INT8 || (store != STORE_INT32 && !cs) || act < 0 ||
+      act > qt::ACT_RELU6)
+    return ERR_ARGS;
+  if (group != 0 && (group < 0 || group % 32 != 0 || K % group != 0 || !gs || !gzpw || zpw || rs ||
+                     (store != STORE_F32 && store != STORE_INT8)))
     return ERR_ARGS;
   const Epilogue epi{static_cast<const float*>(cs), static_cast<const float*>(rs),
-                     static_cast<const float*>(bias), static_cast<const int32_t*>(zpw), relu,
-                     out_s, out_zp, 1.0f / out_s, out_s >= 0x1p-60f && out_s <= 0x1p60f};
+                     static_cast<const float*>(bias), static_cast<const int32_t*>(zpw),
+                     qt::make_activation(act), qt::make_out_quant(out_s, out_zp, qt::make_activation(act).hi),
+                     static_cast<const float*>(gs),
+                     static_cast<const int32_t*>(gzpw), static_cast<int>(group)};
   const auto s = static_cast<cudaStream_t>(stream);
   const int m = static_cast<int>(M), n = static_cast<int>(N), k = static_cast<int>(K);
-  const Plan p = plan(m, n, store);
+  const Plan p = plan(m, n, store, group != 0);
   switch (store) {
     case STORE_INT32: return dispatch<STORE_INT32>(p, a, b, c, m, n, k, ldc, epi, s);
     case STORE_F32: return dispatch<STORE_F32>(p, a, b, c, m, n, k, ldc, epi, s);
@@ -681,8 +739,7 @@ extern "C" int int8_requantize(const void* y, void* q, long long n, float out_s,
                                void* stream) {
   if (n <= 0) return ERR_ARGS;
   Epilogue e{};
-  e.out_s = out_s, e.out_zp = out_zp, e.out_r = 1.0f / out_s;
-  e.div_fast = out_s >= 0x1p-60f && out_s <= 0x1p60f;
+  e.oq = qt::make_out_quant(out_s, out_zp, qt::make_activation(qt::ACT_NONE).hi);
   const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
   requantize_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(y), static_cast<int8_t*>(q), n, e);

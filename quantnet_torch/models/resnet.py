@@ -9,8 +9,10 @@ laid out as the JAX package lays them out, so a tree baked there runs here.
 The static-INT8 forward hands int8 tensors along: each conv requantizes its
 output into the next static conv's domain (`_chain_aq`), and at a block
 boundary the residual add, relu and requantize run in one pass, the
-residual_boundary kernel (ops/residual_boundary.py). Training, the
-space-to-depth stem and the torchvision importer come with later slices.
+residual_boundary kernel (ops/residual_boundary.py). The space-to-depth
+stem (`fold_stem_s2d`, the MLPerf trick) rewrites the 7x7/2 stem as a 4x4/1
+conv over 12 channels: K = 192 for the int8 GEMM instead of 147. Training
+comes with a later slice.
 """
 from __future__ import annotations
 
@@ -133,6 +135,51 @@ def _next_conv1(params: dict, si: int, bi: int) -> Optional[dict]:
     return None
 
 
+def fold_stem_s2d(params: dict) -> dict:
+    """The 7x7/stride-2 stem as a 4x4/stride-1 conv over a space-to-depth
+    input (quantnet/models/resnet.py:188-218), the same function: output
+    pixel o of the stride-2 conv taps padded input rows 2o + j, which in 2x2
+    blocks are blocks o..o+3 at phase j % 2, so the 7x7xC kernel, zero-padded
+    to 8x8, regroups into 4x4x4C. Run it on the fp32 weight, before any
+    quantize transform (BN and the transforms apply unchanged after it)."""
+    conv1 = dict(params["conv1"])
+    w = conv1["w"]
+    kh, kw, cin, cout = w.shape
+    if (kh, kw) != (7, 7):
+        raise ValueError(f"stem fold expects a 7x7 stem, got {tuple(w.shape)}")
+    wp = F.pad(w, (0, 0, 0, 0, 0, 1, 0, 1))  # 8x8
+    wp = wp.reshape(4, 2, 4, 2, cin, cout).permute(0, 2, 1, 3, 4, 5).reshape(4, 4, 4 * cin, cout)
+    conv1["w"] = wp.contiguous()
+    out = dict(params)
+    out["conv1"] = conv1
+    return out
+
+
+def stem_s2d_input(x: torch.Tensor) -> torch.Tensor:
+    """NHWC images -> the space-to-depth input of a folded stem
+    (quantnet/models/resnet.py:221-250): zero pads with the leading pad of
+    XLA's SAME for the 7x7/2 stem and a trailing pad that covers the zero 8th
+    tap and makes the size even, then 2x2 blocks into channels. Data
+    movement only."""
+    n, h, w, c = x.shape
+
+    def pads(size):
+        out_size = -(-size // 2)
+        total = max((out_size - 1) * 2 + 7 - size, 0)
+        pt = total // 2
+        return pt, max(2 * (out_size - 1) + 8 - size - pt, 0)
+
+    (pt, pb), (pl, pr) = pads(h), pads(w)
+    xp = F.pad(x, (0, 0, pl, pr, pt, pb))
+    hh, ww = xp.shape[1] // 2, xp.shape[2] // 2
+    return xp.reshape(n, hh, 2, ww, 2, c).permute(0, 1, 3, 2, 4, 5).reshape(n, hh, ww, 4 * c)
+
+
+def _stem_is_s2d(conv1: dict) -> bool:
+    # A folded stem is 4x4 (fold_stem_s2d); every stock stem is 7x7.
+    return conv1["w"].shape[0] == 4
+
+
 def _maxpool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     """torch's MaxPool2d(3, stride=2, padding=1) on NHWC, padding with -inf,
     or with int8's minimum on the int8 handoff path (resnet.py:253-263)."""
@@ -156,7 +203,9 @@ def apply(
 
     conv1_scale multiplies the stem input. torch_pad takes torch's symmetric
     padding at the stride-2 sites (stem (3, 3), 3x3 convs (1, 1)) in place of
-    XLA's SAME, which pads those asymmetrically. `capture`, if given,
+    XLA's SAME, which pads those asymmetrically. A folded stem
+    (fold_stem_s2d) takes raw NHWC images, space-to-depthed here on the
+    device, or images already in that form (4x the channels). `capture`, if given,
     receives every folded layer's input under its path, and for downsample
     blocks the pre-add outputs under '<path>:out' (static calibration).
     """
@@ -166,10 +215,12 @@ def apply(
     if conv1_scale != 1.0:
         x = x * conv1_scale
     stem = params["conv1"]
-    if stem["w"].shape[0] != 7:
-        raise NotImplementedError("the space-to-depth stem comes with a later slice")
+    s2d = _stem_is_s2d(stem)
+    if s2d and stem["w"].shape[2] == 4 * x.shape[-1]:
+        x = stem_s2d_input(x)
     x = _conv_bn(
-        stem, state.get("conv1", {}), x, stride=2, padding=pad_stem, relu=True,
+        stem, state.get("conv1", {}), x, stride=1 if s2d else 2,
+        padding="VALID" if s2d else pad_stem, relu=True,
         capture=capture, path="conv1", out_quant=_chain_aq(stem, params["layer1"]["0"]["conv1"]),
         flags=flags,
     )

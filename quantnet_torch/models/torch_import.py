@@ -14,9 +14,10 @@ out as the JAX package does, which is what the port's models take:
   (C, H, W); the port flattens NHWC, (H, W, C), and the weight is permuted
   to match.
 
-An imported ResNet runs with `resnet.apply(..., torch_pad=True)`: torch pads
-its stride-2 convs symmetrically. MobileNetV2 comes with ROADMAP Queue 1
-item 3.
+An imported ResNet or MobileNetV2 runs with `apply(..., torch_pad=True)`:
+torch pads its stride-2 convs symmetrically. A depthwise kernel, OIHW
+(C, 1, kh, kw), becomes HWIO (kh, kw, 1, C): the layout the port's
+MobileNetV2 takes.
 """
 from __future__ import annotations
 
@@ -123,6 +124,40 @@ def resnet_from_torch(sd: Dict[str, torch.Tensor], *, device="cuda") -> Tuple[di
     return params, state
 
 
+def mobilenet_from_torch(sd: Dict[str, torch.Tensor], *, device="cuda") -> Tuple[dict, dict]:
+    """A torchvision mobilenet_v2 state dict -> (params, state)
+    (quantnet/models/torch_import.py:262-313). features.0.{0,1}: the stem
+    conv and BN; features.1.conv = [dw (0.0 / 0.1), project (1 / 2)] for the
+    t=1 block; features.2-17.conv = [expand (0.0 / 0.1), dw (1.0 / 1.1),
+    project (2 / 3)]; the next features.N.{0,1}: the head; classifier.1: the
+    fc. The width is read off the shapes."""
+    c = _Converter(sd, resolve_device(device))
+    params: dict = {}
+    state: dict = {"conv_stem": {}}
+    params["conv_stem"] = c.conv_bn("features.0.0", "features.0.1", state["conv_stem"])
+    fi, bi = 1, 0
+    while f"features.{fi}.conv.0.0.weight" in sd:
+        t = f"features.{fi}.conv"
+        bp: dict = {}
+        bs: dict = {}
+        if f"{t}.1.0.weight" in sd:  # t != 1: expand, dw, project
+            bs["expand"], bs["dw"], bs["project"] = {}, {}, {}
+            bp["expand"] = c.conv_bn(f"{t}.0.0", f"{t}.0.1", bs["expand"])
+            bp["dw"] = c.conv_bn(f"{t}.1.0", f"{t}.1.1", bs["dw"])
+            bp["project"] = c.conv_bn(f"{t}.2", f"{t}.3", bs["project"])
+        else:  # the t=1 block: dw, project
+            bs["dw"], bs["project"] = {}, {}
+            bp["dw"] = c.conv_bn(f"{t}.0.0", f"{t}.0.1", bs["dw"])
+            bp["project"] = c.conv_bn(f"{t}.1", f"{t}.2", bs["project"])
+        params[f"block{bi}"], state[f"block{bi}"] = bp, bs
+        fi += 1
+        bi += 1
+    state["conv_head"] = {}
+    params["conv_head"] = c.conv_bn(f"features.{fi}.0", f"features.{fi}.1", state["conv_head"])
+    params["fc"] = {"w": c.linear_w("classifier.1.weight"), "b": c.f32("classifier.1.bias")}
+    return params, state
+
+
 # The reference's ImageNet track is ResNet-50 (quantnet/models/torch_import.py:320).
 resnet50_from_torch = resnet_from_torch
 
@@ -132,16 +167,12 @@ def import_checkpoint(
 ) -> Tuple[dict, dict, Optional[float]]:
     """Load and convert a reference `.pth`. Returns (params, state,
     best_accuracy), the last None for a raw state dict."""
-    if model.startswith("mobilenetv2"):
-        raise NotImplementedError(
-            "importing MobileNetV2 comes with its port (ROADMAP Queue 1 item 3)"
-        )
-    if model != "simple_convnet" and not model.startswith("resnet"):
+    converters = {"simple_convnet": convnet_from_torch, "resnet": resnet_from_torch,
+                  "mobilenetv2": mobilenet_from_torch}
+    family = next((f for f in ("resnet", "mobilenetv2") if model.startswith(f)), model)
+    if family not in converters:
         raise ValueError(f"unknown model {model!r}")
     device = resolve_device(device)
     sd, best = _split(_load(path))
-    if model == "simple_convnet":
-        params, state = convnet_from_torch(sd, device=device)
-    else:
-        params, state = resnet_from_torch(sd, device=device)
+    params, state = converters[family](sd, device=device)
     return params, state, best

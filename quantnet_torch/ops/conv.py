@@ -20,12 +20,17 @@ Four paths, picked by the layer's leaves:
 
 Every path takes `out_quant` (the consumer's ActQuant) and then requantizes
 its output to int8 in that domain: the static int8 tensor handoff, which the
-int8 GEMM kernel stores itself. The int8 conv always lowers through im2col
-to the int8 GEMM kernel, as the JAX package does under
-`int8_conv_backend="im2col"`. The fp32 / bf16 and weight-only convs run
-outside Pallas in the JAX package too: here they are cuDNN convs in f32 with
-TF32 off. Grouped weights raise, as in the JAX package; groups, relu6 and the
-probe / QAT branches come with later slices.
+int8 kernels store themselves. The int8 conv lowers through im2col to the
+int8 GEMM kernel, as the JAX package does under `int8_conv_backend="im2col"`;
+a depthwise conv (`groups` == C, HWIO kernel (kh, kw, 1, C)), which the JAX
+package leaves to XLA's native grouped conv (quantnet/ops/conv.py:123-128),
+runs the depthwise int8 conv kernel (ops/depthwise_conv.py) with the same
+epilogue. The fp32 / bf16 and weight-only convs run outside Pallas in the JAX
+package too: here they are cuDNN convs in f32 with TF32 off, grouped where
+asked. Grouped convs that are not depthwise, and group-wise quantized conv
+weights, raise, as in the JAX package. Activations: relu and relu6
+(MobileNetV2's clipped relu, `jnp.clip(y, 0, 6)`). The probe / QAT branches
+come with later slices.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ import torch.nn.functional as F
 from quantnet_torch.core.config import DEFAULT_FLAGS, Flags
 from quantnet_torch.core.quantize import dynamic_quantize, quantize_affine
 from quantnet_torch.core.types import ActQuant, DynamicActQuant, QTensor
+from quantnet_torch.ops.depthwise_conv import depthwise_conv, depthwise_conv_plain
 from quantnet_torch.ops.int8_matmul import K_ALIGN, Epilogue
 from quantnet_torch.ops.linear import float_epilogue, int8_epilogue, int8_matmul
 from quantnet_torch.ops.macs import record_conv
@@ -61,7 +67,9 @@ def _pad_nhwc(x: torch.Tensor, pads: Pads, value: Optional[torch.Tensor] = None)
     """Pad H and W with zeros, or with `value` (a 0-d tensor of x's dtype,
     the zero point on the static path; read on the device, no host sync)."""
     (pt, pb), (pl, pr) = pads
-    if value is None or not any((pt, pb, pl, pr)):
+    if not any((pt, pb, pl, pr)):
+        return x  # VALID: no copy (every 1x1 conv)
+    if value is None:
         return F.pad(x, (0, 0, pl, pr, pt, pb))
     n, h, w, c = x.shape
     out = value.reshape(1, 1, 1, 1).expand(n, h + pt + pb, w + pl + pr, c).contiguous()
@@ -100,27 +108,28 @@ def _im2col(x: torch.Tensor, kh: int, kw: int, stride: int, k_multiple: int = 1)
     return out
 
 
-def _conv_no_tf32(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+def _conv_no_tf32(x: torch.Tensor, w: torch.Tensor, stride: int, groups: int = 1) -> torch.Tensor:
     """F.conv2d with f32 kept f32: cuDNN takes f32 convs in TF32 by default,
     which keeps about three decimal digits; the JAX package's f32 conv (an
     fp32 stem under skip_first_layer) does not round its operands. PyTorch's
     scoped `cudnn.flags` holds TF32 off for this call only; the caller's
     other cuDNN settings are passed through unchanged."""
     if not x.is_cuda:
-        return F.conv2d(x, w, stride=stride)
+        return F.conv2d(x, w, stride=stride, groups=groups)
     cudnn = torch.backends.cudnn
     with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                      benchmark_limit=cudnn.benchmark_limit,
                      deterministic=cudnn.deterministic, allow_tf32=False):
-        return F.conv2d(x, w, stride=stride)
+        return F.conv2d(x, w, stride=stride, groups=groups)
 
 
-def _conv_f32(x: torch.Tensor, w: torch.Tensor, stride: int, pads: Pads) -> torch.Tensor:
+def _conv_f32(x: torch.Tensor, w: torch.Tensor, stride: int, pads: Pads, groups: int = 1) -> torch.Tensor:
     """NHWC x, HWIO w -> NHWC f32: the JAX package's conv with
-    `preferred_element_type=f32`. bf16 operands are widened to f32, where
-    their products are exact, and the conv runs in f32 with TF32 off."""
+    `preferred_element_type=f32` (and `feature_group_count=groups`). bf16
+    operands are widened to f32, where their products are exact, and the
+    conv runs in f32 with TF32 off."""
     xp = _pad_nhwc(x.float(), pads).permute(0, 3, 1, 2)
-    y = _conv_no_tf32(xp, w.float().permute(3, 2, 0, 1), stride)
+    y = _conv_no_tf32(xp, w.float().permute(3, 2, 0, 1), stride, groups)
     return y.permute(0, 2, 3, 1)
 
 
@@ -142,6 +151,33 @@ def _int8_conv(
     return y.reshape(n, ho, wo, co)
 
 
+def _int8_depthwise(
+    qx: torch.Tensor,
+    layer: dict,
+    stride: int,
+    pads: Pads,
+    flags: Flags,
+    epi: Epilogue,
+    pad_value: int = 0,
+) -> torch.Tensor:
+    """int8 NHWC depthwise conv through the depthwise conv kernel with `epi`
+    fused -> [N, Ho, Wo, C] of epi.out; the padding is the kernel's own."""
+    conv = depthwise_conv_plain if flags.plain else depthwise_conv
+    return conv(qx.contiguous(), layer["w"].values, stride, pads, pad_value, epi)
+
+
+def _check_groups(groups: int, x_shape, w_shape) -> None:
+    """groups 1, or a depthwise conv: groups == C, an HWIO (kh, kw, 1, C) kernel."""
+    if groups == 1:
+        return
+    if not (groups == x_shape[-1] and w_shape[2] == 1 and w_shape[3] == x_shape[-1]):
+        raise NotImplementedError(
+            f"grouped convs other than depthwise are not supported (no model uses them): "
+            f"groups {groups} over {x_shape[-1]} input channels, kernel {tuple(w_shape)}; a "
+            "depthwise conv has groups == C and an HWIO (kh, kw, 1, C) kernel"
+        )
+
+
 def conv2d(
     layer: dict,
     x: torch.Tensor,
@@ -150,16 +186,20 @@ def conv2d(
     padding: Padding = "SAME",
     activation: Optional[str] = None,
     out_quant: Optional[ActQuant] = None,
+    groups: int = 1,
     flags: Flags = DEFAULT_FLAGS,
 ) -> torch.Tensor:
     """Apply a conv layer {'w' (HWIO), optional 'b', 'aq', 'wsum', 'gemm'} to NHWC x.
 
     padding: "SAME" (XLA's, asymmetric at stride 2), "VALID", or explicit
     ((top, bottom), (left, right)), as the ResNet's `torch_pad` passes it.
+    groups: 1, or C for a depthwise conv (HWIO kernel (kh, kw, 1, C)); a
+    call-site argument, as in the JAX package, never stored in the layer.
     """
     w = layer["w"]
     b = layer.get("b")
     kh, kw = w.shape[0], w.shape[1]
+    _check_groups(groups, x.shape, w.shape)
     pads = _resolve_pads(padding, x.shape[1], x.shape[2], kh, kw, stride)
     record_conv(x.shape, w.shape, stride, pads)
 
@@ -167,7 +207,7 @@ def conv2d(
         # The narrow-dtype rule of ops/linear.py: bf16 params pull the
         # activations down to bf16; the conv accumulates and returns f32.
         cdtype = w.dtype if w.dtype == torch.bfloat16 else x.dtype
-        y = _conv_f32(x.to(cdtype), w.to(cdtype), stride, pads)
+        y = _conv_f32(x.to(cdtype), w.to(cdtype), stride, pads, groups)
         return float_epilogue(y, b, activation, out_quant)
 
     if w.group_size is not None:
@@ -182,13 +222,15 @@ def conv2d(
     if aq is None:
         # Weight-only: the conv in the activation dtype with f32 accumulation,
         # the per-channel scale after it.
-        y = _conv_f32(x, w.values.to(x.dtype), stride, pads) * w.scale
+        y = _conv_f32(x, w.values.to(x.dtype), stride, pads, groups) * w.scale
         return float_epilogue(y, b, activation, out_quant)
 
     if isinstance(aq, DynamicActQuant):
         # Symmetric per-batch quant: the f32 zero is the int8 zero, so pad with 0.
         qx, x_scale = dynamic_quantize(x, axis=None)
         epi = int8_epilogue(layer, x_scale, activation=activation, out_quant=out_quant)
+        if groups > 1:
+            return _int8_depthwise(qx, layer, stride, pads, flags, epi)
         return _int8_conv(qx, layer, stride, pads, flags, epi)
 
     if isinstance(aq, ActQuant):
@@ -196,6 +238,10 @@ def conv2d(
         # requantized into it); the f32 zero is the zero point, so pad with it.
         qx = x if x.dtype == torch.int8 else quantize_affine(x, aq.scale, aq.zero_point)
         epi = int8_epilogue(layer, activation=activation, out_quant=out_quant)
+        if groups > 1:
+            # The kernel takes the pad value by value: the frozen zero point's
+            # host copy, read once.
+            return _int8_depthwise(qx, layer, stride, pads, flags, epi, int(aq.host_scalars()[1]))
         return _int8_conv(qx, layer, stride, pads, flags, epi, aq.zero_point.to(torch.int8))
 
     raise TypeError(f"unsupported activation-quant leaf {type(aq).__name__}")

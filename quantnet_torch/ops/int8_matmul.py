@@ -5,10 +5,14 @@ same kernel with the layer's epilogue fused into its store.
 int8[N,K]^T -> int32[M,N]. `int8_gemm_epilogue(a, b_nk, epi)` runs the
 epilogue that an int8 conv or linear applies to that accumulator (`Epilogue`)
 inside the kernel and stores the layer's output type: f32, the bf16 handoff or
-the int8 handoff. Both launch the hand-written CUDA kernel
+the int8 handoff. With `epi.group` set it runs the kernel's grouped-K mode,
+W4A8's product (quantnet/ops/linear.py:228-253): one int32 product per group
+of K rows, each folded into an f32 sum with its own zero-point correction and
+weight scale, in group order. Both launch the hand-written CUDA kernel
 (csrc/int8_gemm.cu) on a CUDA tensor and run their plain version on a CPU
 tensor; there is no other route. `int8_gemm.launches` counts every launch of
-the kernel, whatever it stores.
+the kernel, whatever it stores, and `int8_gemm.grouped_launches` those of
+them in the grouped-K mode.
 
 B is taken as int8[N, K], K contiguous: weights are transposed once at
 quantize time (`QTensor.nk`), so both operands stream along K. The kernel's
@@ -31,46 +35,83 @@ from quantnet_torch.core.quantize import quantize_affine
 from quantnet_torch.core.types import ActQuant
 
 K_ALIGN = 16
-# The kernel's store codes (csrc/int8_gemm.cu, enum Store).
+# The kernel's store codes (csrc/int8_gemm.cu, enum Store) and activation
+# codes (csrc/epilogue.cuh, enum Act).
 _STORES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2, torch.int8: 3}
+ACTS = {None: 0, "relu": 1, "relu6": 2}
+# The grouped mode's group is a whole number of the kernel's k32 steps.
+GROUP_ALIGN = 32
+
+
+def activation(y: torch.Tensor, act: Optional[str]) -> torch.Tensor:
+    """The epilogue's activation in PyTorch ops, as the kernels compute it:
+    relu, or relu6 = jnp.clip(y, 0, 6) as XLA runs it. Both give +0 for -0
+    (the `+ 0.0`; XLA's max and clamp do the same) and pass NaN."""
+    if act is None:
+        return y
+    if act == "relu":
+        return torch.relu(y) + 0.0
+    if act == "relu6":
+        return torch.clamp(y, 0.0, 6.0) + 0.0
+    raise ValueError(f"unknown activation {act!r}")
 
 
 @dataclass(frozen=True)
 class Epilogue:
     """What an int8 layer does to its int32 accumulator, in this order:
     acc - zpw (int32), float(acc) * s with s = cs, or rs[:, None] * cs, + bias,
-    relu, then the store in `out`: f32, bf16, or int8 requantized into
-    `out_quant`'s domain.
+    the activation (None, "relu" or "relu6"), then the store in `out`: f32,
+    bf16, or int8 requantized into `out_quant`'s domain.
 
-    cs:   f32[N], the activation scale times the weight scale per column
+    cs:   f32[N], the activation scale times the weight scale per column (the
+          activation scale alone in the grouped mode)
     bias: f32[N] or None
     zpw:  int32[N] (the static path's zero_point * colsum(w)) or None
     rs:   f32[M], a per-row activation scale (the dynamic linear), or None
+    group, gs, gzpw: the grouped-K mode (W4A8), else None: K splits into
+          G = K / group products; the accumulator is then the f32 sum over
+          the groups, in order, of float(acc_g - gzpw[g]) * gs[g], with gs
+          f32[G, N] the weight scale and gzpw int32[G, N] the zero point
+          times the colsum of each group (no zpw, no rs; stores f32 or int8)
     """
 
     cs: torch.Tensor
     bias: Optional[torch.Tensor] = None
     zpw: Optional[torch.Tensor] = None
     rs: Optional[torch.Tensor] = None
-    relu: bool = False
+    act: Optional[str] = None
     out: torch.dtype = torch.float32
     out_quant: Optional[ActQuant] = None
+    group: Optional[int] = None
+    gs: Optional[torch.Tensor] = None
+    gzpw: Optional[torch.Tensor] = None
 
-    def check(self, m: int, n: int, a: torch.Tensor) -> None:
-        """Raises unless the epilogue fits an [M, N] product of operands like `a`."""
+    def check(self, m: int, n: int, k: int, a: torch.Tensor) -> None:
+        """Raises unless the epilogue fits an [M, K] x [K, N] product of
+        operands like `a`."""
         if self.out not in (torch.float32, torch.bfloat16, torch.int8):
             raise ValueError(f"the epilogue stores f32, bf16 or int8, not {self.out}")
         if (self.out == torch.int8) != (self.out_quant is not None):
             raise ValueError("an int8 store needs out_quant, and only an int8 store takes it")
+        if self.act not in ACTS:
+            raise ValueError(f"unknown activation {self.act!r}")
+        vectors = [("cs", self.cs, torch.float32, (n,)), ("bias", self.bias, torch.float32, (n,)),
+                   ("zpw", self.zpw, torch.int32, (n,)), ("rs", self.rs, torch.float32, (m,))]
+        if (self.group is None) != (self.gs is None) or (self.group is None) != (self.gzpw is None):
+            raise ValueError("the grouped mode takes group, gs and gzpw together")
+        if self.group is not None:
+            if self.group <= 0 or k % self.group:
+                raise ValueError(f"group {self.group} does not divide K = {k}")
+            if self.zpw is not None or self.rs is not None or self.out == torch.bfloat16:
+                raise ValueError("the grouped mode takes no zpw and no rs, and stores f32 or int8")
+            g = k // self.group
+            vectors += [("gs", self.gs, torch.float32, (g, n)), ("gzpw", self.gzpw, torch.int32, (g, n))]
         dev = a.get_device()
-        for name, t, dtype, size in (("cs", self.cs, torch.float32, n),
-                                     ("bias", self.bias, torch.float32, n),
-                                     ("zpw", self.zpw, torch.int32, n),
-                                     ("rs", self.rs, torch.float32, m)):
+        for name, t, dtype, shape in vectors:
             if t is None:
                 continue
-            if t.dtype != dtype or t.shape != (size,):
-                raise ValueError(f"epilogue {name} must be {dtype}[{size}], got {t.dtype}{tuple(t.shape)}")
+            if t.dtype != dtype or t.shape != shape:
+                raise ValueError(f"epilogue {name} must be {dtype}{list(shape)}, got {t.dtype}{tuple(t.shape)}")
             if t.get_device() != dev or not t.is_contiguous() or t.data_ptr() % 8:
                 raise ValueError(f"epilogue {name} must be contiguous and 8-byte aligned on {a.device}")
 
@@ -85,26 +126,46 @@ def int8_gemm_plain(a: torch.Tensor, b_nk: torch.Tensor) -> torch.Tensor:
     return (a.double() @ b_nk.double().t()).to(torch.int32)
 
 
+def finish_epilogue(y: torch.Tensor, epi: Epilogue) -> torch.Tensor:
+    """The epilogue after the scale: + bias, the activation, the store."""
+    if epi.bias is not None:
+        y = y + epi.bias
+    y = activation(y, epi.act)
+    if epi.out == torch.int8:
+        return quantize_affine(y, epi.out_quant.scale, epi.out_quant.zero_point)
+    return y.to(epi.out)
+
+
 def apply_epilogue(acc: torch.Tensor, epi: Epilogue) -> torch.Tensor:
     """The epilogue on an int32 accumulator in PyTorch ops, as the ops layer
     ran it before the kernel took it over."""
     if epi.zpw is not None:
         acc = acc - epi.zpw
     scale = epi.cs if epi.rs is None else epi.rs[:, None] * epi.cs
-    y = acc.float() * scale
-    if epi.bias is not None:
-        y = y + epi.bias
-    if epi.relu:
-        y = torch.relu(y)
-    if epi.out == torch.int8:
-        return quantize_affine(y, epi.out_quant.scale, epi.out_quant.zero_point)
-    return y.to(epi.out)
+    return finish_epilogue(acc.float() * scale, epi)
+
+
+def grouped_accumulate(acc_of_group, k: int, epi: Epilogue) -> torch.Tensor:
+    """The grouped mode's f32 accumulator from each group's int32 product
+    (`acc_of_group(lo, hi)`, the product over K rows lo..hi): the sum over
+    the groups in order, from 0, of float(acc_g - gzpw[g]) * gs[g], as the
+    JAX package's jnp.sum(acc.astype(f32) * w_scale, axis=0) adds them."""
+    y = None
+    for g in range(k // epi.group):
+        t = (acc_of_group(g * epi.group, (g + 1) * epi.group) - epi.gzpw[g]).float() * epi.gs[g]
+        y = (torch.zeros_like(t) if y is None else y) + t
+    return y
 
 
 def int8_gemm_epilogue_plain(a: torch.Tensor, b_nk: torch.Tensor, epi: Epilogue) -> torch.Tensor:
     """The int8 GEMM, then `apply_epilogue`: the function the kernel must
-    match bit for bit."""
-    return apply_epilogue(int8_gemm_plain(a, b_nk), epi)
+    match bit for bit. In the grouped mode each group's product is the int8
+    GEMM of its K-slice of both operands."""
+    if epi.group is None:
+        return apply_epilogue(int8_gemm_plain(a, b_nk), epi)
+    y = grouped_accumulate(lambda lo, hi: int8_gemm_plain(a[:, lo:hi], b_nk[:, lo:hi]),
+                           a.shape[1], epi)
+    return finish_epilogue(y * epi.cs, epi)
 
 
 def pad_k(a: torch.Tensor, b_nk: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -116,8 +177,9 @@ def pad_k(a: torch.Tensor, b_nk: torch.Tensor) -> Tuple[torch.Tensor, torch.Tens
     return F.pad(a, (0, pad)), F.pad(b_nk, (0, pad))
 
 
-def _operands(a: torch.Tensor, b_nk: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Checks both operands and returns them K-padded for the kernel."""
+def _operands(a: torch.Tensor, b_nk: torch.Tensor, pad: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Checks both operands and returns them K-padded for the kernel (as
+    they are with `pad` False: the grouped mode's K is whole groups)."""
     if a.dtype != torch.int8 or b_nk.dtype != torch.int8:
         raise TypeError(f"int8_gemm takes int8 operands, got {a.dtype} and {b_nk.dtype}")
     if a.ndim != 2 or b_nk.ndim != 2 or a.shape[1] != b_nk.shape[1]:
@@ -132,7 +194,7 @@ def _operands(a: torch.Tensor, b_nk: torch.Tensor) -> Tuple[torch.Tensor, torch.
         raise ValueError("int8_gemm takes contiguous operands")
     if (a.data_ptr() | b_nk.data_ptr()) % 16:
         raise ValueError("int8_gemm takes 16-byte-aligned operands")
-    return pad_k(a, b_nk)
+    return pad_k(a, b_nk) if pad else (a, b_nk)
 
 
 def _launch(a: torch.Tensor, b: torch.Tensor, epi: Optional[Epilogue]) -> torch.Tensor:
@@ -147,14 +209,18 @@ def _launch(a: torch.Tensor, b: torch.Tensor, epi: Optional[Epilogue]) -> torch.
     out = a.new_empty((m, ldc), dtype=dtype)
     if m == 0 or n == 0:
         return out[:, :n]
+    grouped = (None, None, 0)
     if epi is None:
-        store, ptrs, relu, out_s, out_zp = 0, (None,) * 4, 0, 0.0, 0.0
+        store, ptrs, act, out_s, out_zp = 0, (None,) * 4, 0, 0.0, 0.0
     else:
         ptrs = tuple(None if t is None else t.data_ptr() for t in (epi.cs, epi.rs, epi.bias, epi.zpw))
-        store, relu = _STORES[epi.out], int(epi.relu)
+        store, act = _STORES[epi.out], ACTS[epi.act]
         out_s, out_zp = epi.out_quant.host_scalars() if epi.out_quant is not None else (0.0, 0.0)
+        if epi.group is not None:
+            grouped = (epi.gs.data_ptr(), epi.gzpw.data_ptr(), epi.group)
     fn = _build.kernel("int8_gemm")
-    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, ldc, store, *ptrs, relu, out_s, out_zp)
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, ldc, store, *ptrs, act, out_s,
+            out_zp, *grouped)
     dev = a.get_device()
     # The raw current device and stream: torch.cuda.current_stream() builds
     # a Stream object, several microseconds of host time on every launch.
@@ -165,6 +231,8 @@ def _launch(a: torch.Tensor, b: torch.Tensor, epi: Optional[Epilogue]) -> torch.
             err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
     _build.check(err, "int8_gemm")
     int8_gemm.launches += 1
+    if epi is not None and epi.group is not None:
+        int8_gemm.grouped_launches += 1
     return out if ldc == n else out[:, :n]
 
 
@@ -179,11 +247,15 @@ def int8_gemm(a: torch.Tensor, b_nk: torch.Tensor) -> torch.Tensor:
 
 def int8_gemm_epilogue(a: torch.Tensor, b_nk: torch.Tensor, epi: Epilogue) -> torch.Tensor:
     """The int8 GEMM with `epi` fused into the kernel's store -> epi.out[M,N]:
-    the kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    a, b_nk = _operands(a, b_nk)
-    epi.check(a.shape[0], b_nk.shape[0], a)
+    the kernel on a CUDA tensor, the plain version on a CPU tensor. The
+    kernel's grouped mode takes a group that is a multiple of GROUP_ALIGN."""
+    a, b_nk = _operands(a, b_nk, pad=epi.group is None)
+    epi.check(a.shape[0], b_nk.shape[0], a.shape[1], a)
     if a.device.type == "cpu":
         return int8_gemm_epilogue_plain(a, b_nk, epi)
+    if epi.group is not None and epi.group % GROUP_ALIGN:
+        raise ValueError(f"the int8 GEMM kernel's grouped mode takes a group that is a multiple "
+                         f"of {GROUP_ALIGN}, got group {epi.group}")
     return _launch(a, b_nk, epi)
 
 
@@ -224,3 +296,4 @@ def requantize_cases(scale: float, device) -> torch.Tensor:
 
 
 int8_gemm.launches = 0
+int8_gemm.grouped_launches = 0  # of them, the grouped-K mode's (W4A8)

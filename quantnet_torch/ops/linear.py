@@ -17,10 +17,12 @@ Four paths, picked by the layer's leaves:
 
 Every path takes `out_quant` and then requantizes its output into that
 domain (the int8 handoff; see ops/conv.py); on the int8 GEMM paths the
-kernel stores that int8 output itself. The fp32 / bf16 and weight-only
+kernel stores that int8 output itself. W4A8's grouped static weight runs
+the int8 GEMM kernel's grouped-K mode: one int32 product per group of K
+rows, folded in f32 with each group's zero-point correction and scale inside
+the kernel (quantnet/ops/linear.py:228-253). The fp32 / bf16 and weight-only
 products run outside Pallas in the JAX package too: here they are PyTorch
-products with TF32 off. W4A8's grouped static path and the probe / QAT
-branches come with later slices and raise here.
+products with TF32 off. The probe / QAT branches come with later slices.
 """
 from __future__ import annotations
 
@@ -40,25 +42,19 @@ from quantnet_torch.ops.fused_dynamic_matmul import (
 from quantnet_torch.ops.int8_matmul import (
     K_ALIGN,
     Epilogue,
+    activation,
     int8_gemm_epilogue,
     int8_gemm_epilogue_plain,
 )
 from quantnet_torch.ops.macs import record_linear
 
 
-def apply_act(y: torch.Tensor, activation: Optional[str]) -> torch.Tensor:
-    if activation is None:
-        return y
-    if activation == "relu":
-        return torch.relu(y)
-    raise ValueError(f"unknown activation {activation!r}")
-
-
-def relu_flag(activation: Optional[str]) -> bool:
-    """The int8 GEMM epilogue's relu switch for an activation name."""
-    if activation not in (None, "relu"):
-        raise ValueError(f"unknown activation {activation!r}")
-    return activation == "relu"
+def relu_flag(act: Optional[str]) -> bool:
+    """The fused dynamic kernel's relu switch for an activation name (it
+    takes none or relu)."""
+    if act not in (None, "relu"):
+        raise ValueError(f"the fused dynamic GEMM applies no activation or relu, not {act!r}")
+    return act == "relu"
 
 
 def _per_column(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -73,13 +69,17 @@ class GemmConstants:
 
     b_nk:    int8[N, K'], the weight as the int8 GEMM kernel takes it: K
              zero-padded to a multiple of K_ALIGN (the same tensor as
-             `w.nk()` where K is one already)
+             `w.nk()` where K is one already, and always for a grouped weight)
     w_nk:    int8[N, K], the weight as the fused dynamic kernel takes it (a
              dynamic dense layer), else None
-    w_scale: f32[N], the weight scale per column
-    cs:      f32[N], aq.scale * w.scale (static), else None
-    zpw:     int32[N], zero_point * wsum (static), else None
+    w_scale: f32[N], the weight scale per column (a depthwise conv's per
+             channel; f32[G, N] for a grouped weight, one row per group)
+    cs:      f32[N], aq.scale * w.scale (static; aq.scale alone for a
+             grouped weight), else None
+    zpw:     int32[N], zero_point * wsum (static; int32[G, N] for a grouped
+             weight), else None
     bias:    f32[N], or None
+    group:   the rows of K that share a scale (a grouped weight), else None
     """
 
     b_nk: torch.Tensor
@@ -88,6 +88,7 @@ class GemmConstants:
     cs: Optional[torch.Tensor]
     zpw: Optional[torch.Tensor]
     bias: Optional[torch.Tensor]
+    group: Optional[int] = None
 
 
 def gemm_constants(layer: dict) -> GemmConstants:
@@ -96,6 +97,17 @@ def gemm_constants(layer: dict) -> GemmConstants:
     w, aq, b = layer["w"], layer["aq"], layer.get("b")
     n = w.values.shape[-1]
     k = w.values.numel() // n
+    bias = None if b is None else _per_column(b, n)
+    if w.group_size is not None:
+        # W4A8: the kernel's grouped mode takes K as it is (whole groups),
+        # the activation scale per column and each group's scale and
+        # zero-point correction.
+        return GemmConstants(
+            b_nk=w.nk(), w_nk=None, w_scale=w.scale.float().reshape(-1, n).contiguous(),
+            cs=_per_column(aq.scale, n),
+            zpw=(aq.zero_point * layer["wsum"]).to(torch.int32).reshape(-1, n).contiguous(),
+            bias=bias, group=w.group_size,
+        )
     pad = -k % K_ALIGN
     if pad == 0:
         b_nk = w.nk()
@@ -109,7 +121,7 @@ def gemm_constants(layer: dict) -> GemmConstants:
         zpw = (aq.zero_point * layer["wsum"]).to(torch.int32).reshape(-1).expand(n).contiguous()
     return GemmConstants(
         b_nk=b_nk, w_nk=w.nk() if dense_dynamic else None, w_scale=w_scale, cs=cs, zpw=zpw,
-        bias=None if b is None else _per_column(b, n),
+        bias=bias,
     )
 
 
@@ -138,7 +150,11 @@ def int8_epilogue(
     dynamic linear's per-row quant), else () per tensor."""
     aq, g = layer["aq"], _constants(layer)
     rs = None
-    if isinstance(aq, ActQuant):
+    grouped = {}
+    if g.group is not None:
+        grouped = dict(group=g.group, gs=g.w_scale, gzpw=g.zpw)
+        cs = g.cs
+    elif isinstance(aq, ActQuant):
         cs = g.cs
     elif per_row:
         cs, rs = g.w_scale, x_scale.float().reshape(-1)
@@ -151,8 +167,8 @@ def int8_epilogue(
     else:
         out = torch.float32
     return Epilogue(
-        cs=cs, bias=g.bias, zpw=g.zpw, rs=rs, relu=relu_flag(activation), out=out,
-        out_quant=out_quant,
+        cs=cs, bias=g.bias, zpw=None if grouped else g.zpw, rs=rs, act=activation, out=out,
+        out_quant=out_quant, **grouped,
     )
 
 
@@ -185,14 +201,13 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def needs_gemm_constants(layer: dict) -> bool:
-    """Whether a layer runs through the int8 GEMM kernels and so keeps its
-    frozen operands under 'gemm': an int8 weight that is not grouped, with
-    a dynamic or static activation quant."""
-    w = layer.get("w")
-    return (
-        isinstance(w, QTensor) and w.group_size is None
-        and isinstance(layer.get("aq"), (ActQuant, DynamicActQuant))
-    )
+    """Whether a layer runs through the int8 kernels and so keeps its frozen
+    operands under 'gemm': an int8 weight with a dynamic or static
+    activation quant, grouped only with a static one (W4A8)."""
+    w, aq = layer.get("w"), layer.get("aq")
+    if not isinstance(w, QTensor):
+        return False
+    return isinstance(aq, ActQuant) or (isinstance(aq, DynamicActQuant) and w.group_size is None)
 
 
 def with_gemm_constants(node):
@@ -207,11 +222,11 @@ def with_gemm_constants(node):
     return out
 
 
-def float_epilogue(y: torch.Tensor, b, activation, out_quant) -> torch.Tensor:
+def float_epilogue(y: torch.Tensor, b, act, out_quant) -> torch.Tensor:
     """+ b, activation and the int8 handoff after an f32 product."""
     if b is not None:
         y = y + b
-    return maybe_requantize(apply_act(y, activation), out_quant)
+    return maybe_requantize(activation(y, act), out_quant)
 
 
 def linear(
@@ -244,12 +259,7 @@ def linear(
             y = matmul_f32(x, w.values.to(x.dtype)) * w.scale
         return float_epilogue(y, b, activation, out_quant)
 
-    if w.group_size is not None:
-        if isinstance(aq, ActQuant):
-            raise NotImplementedError(
-                "W4A8's grouped static linear needs a batched int8 GEMM kernel (K1 with "
-                "a batch axis over the K groups), which is not ported yet"
-            )
+    if w.group_size is not None and not isinstance(aq, ActQuant):
         # No kernel takes a (K // g, 1, N) scale on the dynamic path: fail
         # rather than broadcast it into a wrong-shaped output.
         raise NotImplementedError(
@@ -276,7 +286,8 @@ def linear(
 
     if isinstance(aq, ActQuant):
         # Static: (qx - zp) @ qw = qx @ qw - zp * colsum(qw), the colsum
-        # baked as 'wsum'.
+        # baked as 'wsum' (W4A8: per group of K rows, [G, N], folded with
+        # each group's scale in the kernel's grouped mode).
         qx = x if x.dtype == torch.int8 else quantize_affine(x, aq.scale, aq.zero_point)
         epi = int8_epilogue(layer, activation=activation, out_quant=out_quant)
         return int8_matmul(qx, layer, flags, epi)

@@ -69,10 +69,12 @@ def quantize_weight(
 def weight_colsum(qw: QTensor) -> torch.Tensor:
     """int32[O]: the per-output-channel sum of the int8 weight, the static
     path's zero-point correction (x - zp) @ w = x @ w - zp * colsum(w).
-    The per-group colsum of a grouped weight comes with W4A8."""
-    if qw.group_size is not None:
-        raise NotImplementedError("the per-group colsum of a grouped weight comes with W4A8")
+    int32[G, O] for a grouped weight, one colsum per group of rows: its
+    scale varies along K, so the correction stays per group (W4A8)."""
     v = qw.values.to(torch.int32)
+    if qw.group_size is not None:
+        g = qw.group_size
+        return v.reshape(v.shape[0] // g, g, *v.shape[1:]).sum(dim=1, dtype=torch.int32)
     return v.sum(dim=tuple(range(v.ndim - 1)), dtype=torch.int32)
 
 

@@ -12,8 +12,10 @@ int8 x int8 GEMMs and hands int8 tensors from layer to layer.
 
 The JAX package bakes under jit; the port takes the same divisions as XLA
 does there (quantnet_torch/core/quantize.py), so both bake the same bits from
-the same folded params and activation statistics. W4A8 (`weight_bits=4`) and
-the cross-process observer merge come with later slices.
+the same folded params and activation statistics. `weight_bits=4` is the
+W4A8 tier: 4-bit weights inside the same int8-activation path, group-wise
+scales along K for dense layers (`weight_group_size`), per channel for convs.
+The cross-process observer merge comes with a later slice.
 """
 from __future__ import annotations
 
@@ -84,6 +86,7 @@ def quantize(
     layer_policy: Optional[dict] = None,
     last_layer_name: Optional[str] = None,
     weight_bits: int = 8,
+    weight_group_size: Optional[int] = None,
 ) -> Tuple[dict, dict]:
     """FP32 (params, state) -> statically quantized (params', {}): fold,
     calibrate, bake.
@@ -91,6 +94,7 @@ def quantize(
     skip_first_layer keeps the stem in fp32; its output still hands int8 to
     the next static layer. pre_add_quant quantizes the residual-branch
     outputs before the add wherever the model captured ':out' statistics.
+    weight_bits=4 with weight_group_size (e.g. 128) is W4A8.
     """
     params, state = fold_model(params, state)
     act_qparams = calibrate(
@@ -102,6 +106,7 @@ def quantize(
         skip_last_layer=skip_last_layer, skip_first_layer=skip_first_layer,
         pre_add_quant=pre_add_quant, layer_policy=layer_policy,
         last_layer_name=last_layer_name, weight_bits=weight_bits,
+        weight_group_size=weight_group_size,
     )
 
 
@@ -118,14 +123,15 @@ def bake(
     layer_policy: Optional[dict] = None,
     last_layer_name: Optional[str] = None,
     weight_bits: int = 8,
+    weight_group_size: Optional[int] = None,
 ) -> Tuple[dict, dict]:
     """Bake the static tree from calibrated activation qparams. `params` must
     be BN-folded: the tree calibrate() saw. An explicit `layer_policy` entry
     (exact path or leaf name) wins over the skip flags; 'fp32' keeps a layer
-    in fp32."""
-    if weight_bits == 4:
-        raise NotImplementedError("W4A8 (weight_bits=4) comes with a later slice")
-    if weight_bits != 8:
+    in fp32, and 'int8' keeps a layer's weight 8-bit per channel inside a
+    weight_bits=4 bake. One calibration can feed several bakes (static INT8
+    and W4A8 alike)."""
+    if weight_bits not in (8, 4):
         raise ValueError(f"weight_bits must be 8 or 4, got {weight_bits}")
     last = last_layer_name or last_layer_path(params)
     first = first_layer_path(params)
@@ -139,7 +145,13 @@ def bake(
         if action == "fp32" or (not explicit and skipped):
             return dict(layer)
         out = dict(layer)
-        qw = quantize_weight(layer["w"], per_channel)
+        # 'int8': the layer's weight stays 8-bit inside a 4-bit bake (the
+        # activation path is the same either way), with no groups.
+        lbits = 8 if action == "int8" else weight_bits
+        qw = quantize_weight(
+            layer["w"], per_channel, bits=lbits,
+            group_size=weight_group_size if lbits == weight_bits else None,
+        )
         out["w"] = qw
         scale, zp = act_qparams[path]
         out["aq"] = ActQuant(scale=scale, zero_point=zp)

@@ -43,7 +43,7 @@ trace (quantnet_torch/bench/trace.py).
 On the CPU (`device="cpu"`, the tests) the engine runs the forward eagerly,
 the kernels' plain versions, with the same threads. Data-parallel serving
 over several cards (the JAX engine's `mesh`) comes with the `parallel` slice
-(ROADMAP Queue 1 item 6).
+(ROADMAP Queue 1 item 3).
 """
 from __future__ import annotations
 

@@ -1,19 +1,21 @@
 """The port's artifact I/O against the JAX package's, on the trained
 SimpleConvNet artifacts the repository tracks (runs/r3_cifar/saved/).
 
-- The port's `load_artifact` of each of the nine artifacts gives the JAX
+- The port's `load_artifact` of each of the ten artifacts gives the JAX
   package's `load_artifact` converted with interop, leaf for leaf and bit for
   bit (dtypes included: bf16 stays bf16, int4 payloads unpack to int8).
 - A round trip port -> JAX -> port is bit-equal.
-- Eight of them run on both packages on 8 synthetic test images: logits
+- Ten of them run on both packages on 8 synthetic test images: logits
   within 1e-4 x max|logit| for the float and weight-only schemes (measured
   at most 1.7e-5, bf16) and within 1e-3 x max|logit| for the int8 schemes
   (measured 0: one requantize step at a rounding tie in the fp32 stem would
-  show as about 1e-3), with the same argmax. JAX runs its `xla` int8
-  backends jitted without XLA's fusion pass, and the port the same per-row
-  dynamic quantize (`dynamic_linear="unfused"`).
-- W4A8 loads, and its forward raises NotImplementedError naming the batched
-  int8 GEMM it needs.
+  show as about 1e-3), with the same argmax; the two W4A8 artifacts
+  (w4a8 and its AdaRound-refined w4a8_adaround: 4-bit per-channel convs,
+  fc1 and fc2 grouped at g128 through the grouped-K int8 product) bit-equal.
+  JAX runs its `xla` int8 backends jitted without XLA's fusion pass, and the
+  port the same per-row dynamic quantize (`dynamic_linear="unfused"`).
+- A W4A8 tree keeps its grouped GEMM constants, and a grouped weight on the
+  dynamic path still raises.
 """
 import dataclasses
 import pathlib
@@ -32,14 +34,17 @@ from quantnet_torch import interop
 from quantnet_torch.core.config import Flags
 from quantnet_torch.core.types import ActQuant, DynamicActQuant, QTensor
 from quantnet_torch.models import convnet as tconvnet
+from quantnet_torch.ops import linear as tlinear
 from quantnet_torch.ops.linear import GemmConstants
 from quantnet_torch.train import checkpoint as tckpt
 from test_torch_convnet import jit_unfused
 
 SAVED = pathlib.Path(__file__).resolve().parent.parent / "runs" / "r3_cifar" / "saved"
-RUNNABLE = ["fp32", "dynamic", "static", "qat", "weight_only", "weight_only_int4", "bf16", "optimized"]
+RUNNABLE = ["fp32", "dynamic", "static", "qat", "weight_only", "weight_only_int4", "bf16", "optimized",
+            "w4a8", "w4a8_adaround"]
 INT8_SCHEMES = {"dynamic", "static", "qat"}
-ALL = RUNNABLE + ["w4a8"]
+W4A8 = {"w4a8", "w4a8_adaround"}
+ALL = RUNNABLE
 
 
 def _assert_same(a, b, path=""):
@@ -130,6 +135,8 @@ def test_trained_artifact_runs_like_jax(monkeypatch, images, name):
     got, _ = tconvnet.apply(tt["params"], tt["state"], torch.from_numpy(images),
                             flags=Flags(dynamic_linear="unfused"))
     assert got.shape == (8, 10) and got.dtype == torch.float32
+    if name in W4A8:
+        np.testing.assert_array_equal(got.numpy(), ref)
     rel = 1e-3 if name in INT8_SCHEMES else 1e-4
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=rel * np.abs(ref).max())
     np.testing.assert_array_equal(got.numpy().argmax(1), ref.argmax(1))
@@ -138,7 +145,10 @@ def test_trained_artifact_runs_like_jax(monkeypatch, images, name):
 def test_w4a8_loads_and_raises(images):
     tree, _ = tckpt.load_artifact(str(SAVED / "w4a8"), device="cpu")
     fc1 = tree["params"]["fc1"]
-    assert fc1["w"].group_size == 128 and "gemm" not in fc1
+    assert fc1["w"].group_size == 128 and fc1["gemm"].group == 128
+    assert fc1["gemm"].zpw.shape == fc1["gemm"].w_scale.shape == (4096 // 128, 512)
+    assert fc1["gemm"].b_nk.shape == (512, 4096)  # K as it is: whole groups
     assert "gemm" in tree["params"]["conv2"]  # per-channel int4 convs run through K1
-    with pytest.raises(NotImplementedError, match="batched int8 GEMM"):
-        tconvnet.apply(tree["params"], tree["state"], torch.from_numpy(images))
+    # A grouped weight on the dynamic path still has no kernel.
+    with pytest.raises(NotImplementedError, match="group-wise"):
+        tlinear.linear(dict(fc1, aq=DynamicActQuant()), torch.zeros((1, 4096)))

@@ -134,13 +134,13 @@ def test_unknown_model_and_missing_subset_fail(pipeline):
         main(["evaluate", "--model", "resnet77", *d])
     with pytest.raises(SystemExit, match="no artifacts for"):
         main(["evaluate", "--models", "bf16", *d])
-    with pytest.raises(SystemExit, match="Queue 1 item 5"):
+    with pytest.raises(SystemExit, match="Queue 1 item 2"):
         main(["evaluate", "--dataset", "imagenet", *d])
 
 
 def test_unported_schemes_and_flags_refused(pipeline, tmp_path, capsys):
     base, d, _ = pipeline
-    for argv in (["quantize", "--scheme", "w4a8"], ["quantize", "--scheme", "optimized"],
+    for argv in (["quantize", "--scheme", "optimized"],
                  ["quantize", "--equalize"], ["quantize", "--adaround-steps", "4"],
                  ["quantize", "--bias-correct"], ["quantize", "--int4-guard", "50"],
                  ["serve", "--data-parallel", "2"], ["bench", "--s4-runtime"], ["train"]):
@@ -148,27 +148,28 @@ def test_unported_schemes_and_flags_refused(pipeline, tmp_path, capsys):
             main([*argv, *d])
         assert e.value.code == 2, argv  # argparse refuses it
     capsys.readouterr()
+    with pytest.raises(SystemExit, match="Queue 1 item 2"):
+        main(["evaluate", "--models", "qat", *d])
     with pytest.raises(SystemExit, match="Queue 1 item 1"):
-        main(["evaluate", "--models", "w4a8", *d])
-    with pytest.raises(SystemExit, match="Queue 1 item 4"):
         main(["serve", "--scheme", "optimized", *d])
     # Loading every artifact leaves the unported ones out, naming them.
     for suffix in (".json", ".npz"):
-        shutil.copy(SAVED / f"w4a8{suffix}", base / "saved" / f"w4a8{suffix}")
+        shutil.copy(SAVED / f"optimized{suffix}", base / "saved" / f"optimized{suffix}")
     try:
         out = main(["evaluate", *d, "--synthetic-test-size", "32"])
     finally:
         for suffix in (".json", ".npz"):
-            os.remove(base / "saved" / f"w4a8{suffix}")
-    assert "w4a8" not in out
-    assert "left out, not ported yet: w4a8 (ROADMAP Queue 1 item 1" in capsys.readouterr().err
+            os.remove(base / "saved" / f"optimized{suffix}")
+    assert "optimized" not in out
+    assert "left out, not ported yet: optimized (ROADMAP Queue 1 item 1" in capsys.readouterr().err
 
 
 def test_help_names_what_is_not_ported(capsys):
     with pytest.raises(SystemExit):
         main(["quantize", "--help"])
     text = " ".join(capsys.readouterr().out.split())
-    assert "w4a8 scheme (ROADMAP Queue 1 item 1)" in text and "--int4-guard (Queue 1 item 4)" in text
+    assert "the optimized scheme" in text and "--int4-guard (ROADMAP Queue 1 item 1)" in text
+    assert "w4a8" in text  # a scheme --scheme takes
 
 
 def test_default_device_is_the_card(tmp_path):
@@ -179,3 +180,53 @@ def test_default_device_is_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["import-torch", "--ckpt", CKPT, *_dirs(tmp_path)])
     assert not (tmp_path / "saved").exists()
+
+
+@pytest.fixture(scope="module")
+def mobilenet_pipeline(tmp_path_factory):
+    """import-torch of a torchvision-layout mobilenet_v2 state dict (random
+    weights, seed 5) -> quantize --scheme w4a8 -> evaluate, at 64 synthetic
+    CIFAR-10 images."""
+    from test_torch_import import _randomize_bn_stats, _TorchMobileNetV2
+
+    base = tmp_path_factory.mktemp("cli_mnv2")
+    torch.manual_seed(5)
+    m = _TorchMobileNetV2().eval()
+    with torch.no_grad():
+        _randomize_bn_stats(m, seed=5)
+    torch.save(m.state_dict(), base / "mnv2.pth")
+    d = _dirs(base) + ["--synthetic-train-size", "64", "--synthetic-test-size", "64",
+                       "--device", "cpu", "--model", "mobilenetv2"]
+    main(["import-torch", "--ckpt", str(base / "mnv2.pth"), *d])
+    main(["quantize", "--scheme", "w4a8", "--batch-size", "32", "--calibration-batches", "1", *d])
+    results = main(["evaluate", "--eval-batch-size", "32", *d])
+    return base, d, results
+
+
+def test_mobilenetv2_w4a8_pipeline(mobilenet_pipeline, monkeypatch, capsys):
+    """MobileNetV2 through the CLI: its W4A8 artifact (4-bit per-channel
+    convs, the fc grouped at g128) scored, served over the u8 wire, and run
+    by the JAX package on 8 images within 1e-3 x max|logit|, the same argmax."""
+    base, d, results = mobilenet_pipeline
+    assert set(results) == {"fp32", "w4a8"} and all(r["n"] == 64 for r in results.values())
+    meta = json.loads((base / "saved" / "fp32.json").read_text())["metadata"]
+    assert meta["model"] == "mobilenetv2" and meta["torch_pad"] is True
+    out = main(["serve", "--scheme", "w4a8", "--wire", "u8", "--requests", "8", "--buckets", "8", *d])
+    assert out["name"] == "w4a8" and out["stats"]["requests"] == 8
+    with pytest.raises(SystemExit, match="unknown model"):
+        main(["evaluate", *d[:-2], "--model", "mobilenetv2_x"])
+
+    from quantnet.models import mobilenet as jmobilenet
+    from quantnet_torch.models import mobilenet as tmobilenet
+
+    monkeypatch.setattr(jcfg.flags, "int8_matmul_backend", "xla")
+    monkeypatch.setattr(jcfg.flags, "int8_conv_backend", "xla")
+    images = load_cifar10(str(base / "data"), synthetic_train_size=8, synthetic_test_size=8)[1].images
+    path = str(base / "saved" / "w4a8")
+    jt, jmeta = jckpt.load_artifact(path)
+    tt, tmeta = tckpt.load_artifact(path, device="cpu")
+    assert jmeta == tmeta and tt["params"]["fc"]["w"].group_size == 128
+    ref = np.asarray(jmobilenet.apply(jt["params"], jt["state"], jnp.asarray(images), torch_pad=True)[0])
+    got, _ = tmobilenet.apply(tt["params"], tt["state"], torch.from_numpy(images), torch_pad=True)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-3 * np.abs(ref).max())
+    np.testing.assert_array_equal(got.numpy().argmax(1), ref.argmax(1))

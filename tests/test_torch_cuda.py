@@ -121,18 +121,22 @@ def _epilogues(dev, g, m, n):
     aq = ActQuant(torch.tensor(0.0123, device=dev), torch.tensor(-7, dtype=torch.int32, device=dev))
     return {
         "f32": Epilogue(cs=cs),
-        "f32_zpw_bias_relu": Epilogue(cs=cs, bias=bias, zpw=zpw, relu=True),
+        "f32_zpw_bias_relu": Epilogue(cs=cs, bias=bias, zpw=zpw, act="relu"),
         "f32_rs_bias": Epilogue(cs=cs, bias=bias, rs=rs),
-        "bf16_bias_relu": Epilogue(cs=cs, bias=bias, relu=True, out=torch.bfloat16),
+        "bf16_bias_relu": Epilogue(cs=cs, bias=bias, act="relu", out=torch.bfloat16),
         "bf16_rs": Epilogue(cs=cs, rs=rs, out=torch.bfloat16),
-        "int8_zpw_bias_relu": Epilogue(cs=cs, bias=bias, zpw=zpw, relu=True, out=torch.int8, out_quant=aq),
+        "int8_zpw_bias_relu": Epilogue(cs=cs, bias=bias, zpw=zpw, act="relu", out=torch.int8, out_quant=aq),
         "int8_zpw": Epilogue(cs=cs, zpw=zpw, out=torch.int8, out_quant=aq),
         "int8_bias": Epilogue(cs=cs, bias=bias, out=torch.int8, out_quant=aq),
+        "bf16_bias_relu6": Epilogue(cs=cs, bias=bias, act="relu6", out=torch.bfloat16),
+        "int8_zpw_bias_relu6": Epilogue(cs=cs, bias=bias, zpw=zpw, act="relu6", out=torch.int8,
+                                        out_quant=aq),
     }
 
 
 @pytest.mark.parametrize("store", ["f32", "f32_zpw_bias_relu", "f32_rs_bias", "bf16_bias_relu",
-                                   "bf16_rs", "int8_zpw_bias_relu", "int8_zpw", "int8_bias"])
+                                   "bf16_rs", "int8_zpw_bias_relu", "int8_zpw", "int8_bias",
+                                   "bf16_bias_relu6", "int8_zpw_bias_relu6"])
 @pytest.mark.parametrize("m,k,n", [(7, 48, 5), (300, 27, 64), (1000, 576, 128), (513, 256, 256),
                                    (129, 2048, 1000), (4096, 1152, 2048), (65536, 2304, 256)])
 def test_int8_gemm_epilogue_bit_equal(dev, m, k, n, store):
@@ -341,3 +345,130 @@ def test_engine_graph_replay_bit_equal_to_eager(dev, scheme, launches):
         assert eng.stats["batches"] == 1  # all 32 within one coalescing window
         want = eng.forward(torch.from_numpy(imgs).to(dev)).cpu().numpy()
     np.testing.assert_array_equal(got, want)
+
+
+# W4A8's dense layers in K1's grouped-K mode (M, K, N, group): the convnet's
+# fc1 (every group the mode takes) and fc2 at bs1024, ResNet-50's fc at
+# bs128, MobileNetV2's fc at bs256, and ragged shapes (M and N off the tile).
+GROUPED_GEMMS = [(1024, 4096, 512, 32), (1024, 4096, 512, 64), (1024, 4096, 512, 128),
+                 (1024, 4096, 512, 256), (1024, 512, 10, 128), (128, 2048, 1000, 128),
+                 (256, 1280, 1000, 128), (7, 96, 33, 32), (129, 640, 130, 64)]
+
+
+@pytest.mark.parametrize("store", ["f32", "int8"])
+@pytest.mark.parametrize("m,k,n,group", GROUPED_GEMMS)
+def test_int8_gemm_grouped_bit_equal(dev, m, k, n, group, store):
+    """The grouped-K mode against its plain version (G int32 products and
+    the f32 combine in group order), the same bits."""
+    g = torch.Generator(device=dev).manual_seed(m + k + n + group)
+    a = torch.randint(-128, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    b = torch.randint(-7, 8, (n, k), generator=g, device=dev, dtype=torch.int8)
+    gs = torch.rand((k // group, n), generator=g, device=dev) * 1e-2 + 1e-4
+    gzpw = torch.randint(-30000, 30000, (k // group, n), generator=g, device=dev, dtype=torch.int32)
+    cs, bias = torch.full((n,), 0.0371, device=dev), torch.randn((n,), generator=g, device=dev)
+    aq = ActQuant(torch.tensor(0.0613, device=dev), torch.tensor(-11, dtype=torch.int32, device=dev))
+    epi = (Epilogue(cs=cs, bias=bias, act="relu", out=torch.int8, out_quant=aq, group=group, gs=gs, gzpw=gzpw)
+           if store == "int8" else Epilogue(cs=cs, bias=bias, group=group, gs=gs, gzpw=gzpw))
+    before = (int8_gemm.launches, int8_gemm.grouped_launches)
+    got = int8_gemm_epilogue(a, b, epi)
+    torch.cuda.synchronize()
+    assert (int8_gemm.launches, int8_gemm.grouped_launches) == (before[0] + 1, before[1] + 1)
+    ref = int8_gemm_epilogue_plain(a, b, epi)
+    bits = torch.int8 if store == "int8" else torch.int32
+    assert torch.equal(got.contiguous().view(bits), ref.view(bits))
+
+
+def test_grouped_mode_refuses_a_group_off_32(dev):
+    a = torch.zeros((8, 64), dtype=torch.int8, device=dev)
+    epi = Epilogue(cs=torch.ones(8, device=dev), group=16, gs=torch.ones((4, 8), device=dev),
+                   gzpw=torch.zeros((4, 8), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="group 16"):
+        int8_gemm_epilogue(a, torch.zeros((8, 64), dtype=torch.int8, device=dev), epi)
+
+
+# MobileNetV2's depthwise convs at a small batch (N, H, C, stride, pads), and
+# a channel count off the kernel's 8-channel vector (its byte-load path).
+DW_SHAPES = [(2, 112, 32, 1, ((1, 1), (1, 1))), (2, 112, 96, 2, ((0, 1), (0, 1))),
+             (2, 56, 144, 2, ((1, 1), (1, 1))), (3, 14, 576, 2, ((0, 1), (0, 1))),
+             (3, 7, 960, 1, ((1, 1), (1, 1))), (2, 9, 20, 2, ((0, 1), (0, 1)))]
+
+
+@pytest.mark.parametrize("store", ["int32", "static_int8", "dynamic_bf16", "f32"])
+@pytest.mark.parametrize("n,h,c,stride,pads", DW_SHAPES)
+def test_depthwise_conv_bit_equal(dev, n, h, c, stride, pads, store):
+    from quantnet_torch.ops.depthwise_conv import depthwise_conv, depthwise_conv_plain
+
+    g = torch.Generator(device=dev).manual_seed(n + h + c + stride)
+    x = torch.randint(-128, 128, (n, h, h, c), generator=g, device=dev, dtype=torch.int8)
+    w = torch.randint(-127, 128, (3, 3, 1, c), generator=g, device=dev, dtype=torch.int8)
+    cs = torch.rand((c,), generator=g, device=dev) * 1e-3 + 1e-5
+    bias = torch.randn((c,), generator=g, device=dev)
+    zpw = torch.randint(-3000, 3000, (c,), generator=g, device=dev, dtype=torch.int32)
+    aq = ActQuant(torch.tensor(0.0517, device=dev), torch.tensor(-3, dtype=torch.int32, device=dev))
+    pad_value, epi = {
+        "int32": (0, None),
+        "static_int8": (-9, Epilogue(cs=cs, bias=bias, zpw=zpw, act="relu6", out=torch.int8, out_quant=aq)),
+        "dynamic_bf16": (0, Epilogue(cs=cs, bias=bias, act="relu6", out=torch.bfloat16)),
+        "f32": (5, Epilogue(cs=cs, zpw=zpw)),
+    }[store]
+    before = depthwise_conv.launches
+    got = depthwise_conv(x, w, stride, pads, pad_value, epi)
+    torch.cuda.synchronize()
+    assert depthwise_conv.launches == before + 1
+    ref = depthwise_conv_plain(x, w, stride, pads, pad_value, epi)
+    bits = {torch.int32: torch.int32, torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.int8: torch.int8}[ref.dtype]
+    assert got.dtype == ref.dtype and torch.equal(got.view(bits), ref.view(bits))
+
+
+def test_depthwise_conv_refuses_other_kernels(dev):
+    from quantnet_torch.ops.depthwise_conv import depthwise_conv
+
+    x = torch.zeros((1, 8, 8, 16), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="3x3"):
+        depthwise_conv(x, torch.zeros((5, 5, 1, 16), dtype=torch.int8, device=dev), 1, ((2, 2), (2, 2)), 0)
+
+
+@pytest.mark.parametrize("scheme,launches", [("static", (36, 0, 17)), ("dynamic", (35, 1, 17))])
+def test_mobilenet_goes_through_the_kernels(dev, scheme, launches):
+    """MobileNetV2 at 64x64, batch 4: every conv but the depthwise ones and
+    the fc one K1 launch (relu6 in the store), the 17 depthwise convs K4,
+    the dynamic fc K2; the logits are the plain-version forward's bits."""
+    from quantnet_torch.entry import mobilenet_entry
+    from quantnet_torch.models import mobilenet
+    from quantnet_torch.ops.depthwise_conv import depthwise_conv
+
+    fn, (q, qs, x) = mobilenet_entry(dev, scheme=scheme, batch_size=4, image_size=64, calibration_size=4)
+    int8_gemm.launches = fused_dynamic_gemm.launches = depthwise_conv.launches = 0
+    got = fn(q, qs, x)
+    assert (int8_gemm.launches, fused_dynamic_gemm.launches, depthwise_conv.launches) == launches
+    ref, _ = mobilenet.apply(q, qs, x, flags=Flags(plain=True))
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def test_w4a8_convnet_goes_through_the_grouped_mode(dev):
+    params, state = convnet.init(torch.Generator().manual_seed(0), device=dev)
+    calib = torch.randn((8, 32, 32, 3), generator=torch.Generator().manual_seed(1)).to(dev)
+    q, qs = static.quantize(params, state, convnet.apply, [calib], skip_first_layer=True,
+                            weight_bits=4, weight_group_size=128)
+    x = torch.randn((64, 32, 32, 3), generator=torch.Generator().manual_seed(2)).to(dev)
+    int8_gemm.launches = int8_gemm.grouped_launches = 0
+    got, _ = convnet.apply(q, qs, x)
+    assert (int8_gemm.launches, int8_gemm.grouped_launches) == (7, 2)
+    ref, _ = convnet.apply(q, qs, x, flags=Flags(plain=True))
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def test_s2d_resnet18_goes_through_the_kernels(dev):
+    """ResNet-18 with the space-to-depth stem, int8: the stem one K1 launch
+    at K = 192; the logits are the plain-version forward's bits."""
+    from quantnet_torch.entry import resnet_entry
+
+    fn, (q, qs, x) = resnet_entry(dev, depth=18, batch_size=4, image_size=64, calibration_size=4,
+                                  s2d=True, skip_first_layer=False)
+    assert q["conv1"]["gemm"].b_nk.shape == (64, 192)
+    int8_gemm.launches = residual_boundary.launches = 0
+    got = fn(q, qs, x)
+    assert (int8_gemm.launches, residual_boundary.launches) == (21, 7)
+    ref, _ = resnet.apply(q, qs, x, flags=Flags(plain=True))
+    assert torch.equal(got, ref)

@@ -178,15 +178,15 @@ def test_fp32_linear_matches():
 
 
 def test_unported_paths_raise():
-    """Grouped weights have no route but the weight-only one: a grouped conv
-    raises, as in the JAX package, and so does a grouped dense weight on the
-    dynamic path and on the static (W4A8) path, which needs a batched int8
-    GEMM kernel."""
+    """Grouped weights run on the weight-only and the static (W4A8) paths
+    only: a grouped conv raises, as in the JAX package, and so does a grouped
+    dense weight on the dynamic path; a grouped static layer built by hand
+    without its GEMM constants raises, naming them."""
     q = QTensor(values=torch.zeros((4, 2), dtype=torch.int8), scale=torch.ones(2, 1, 2), group_size=2)
     with pytest.raises(NotImplementedError, match="group-wise"):
         tlinear.linear({"w": q, "aq": DynamicActQuant()}, torch.zeros((1, 4)))
     aq = ActQuant(torch.tensor(0.1), torch.tensor(0, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="batched int8 GEMM"):
+    with pytest.raises(ValueError, match="GEMM constants"):
         tlinear.linear({"w": q, "aq": aq}, torch.zeros((1, 4)))
     qc = QTensor(values=torch.zeros((3, 3, 1, 2), dtype=torch.int8), scale=torch.ones(1, 1, 1, 2),
                  group_size=1)

@@ -115,8 +115,10 @@ def test_resnet50_forward_parity_under_torch_pad(torch_resnet50):
 
 
 def test_mobilenet_and_unknown_models_raise():
+    """A checkpoint read as a model it does not hold raises (the convnet's
+    has no MobileNetV2 keys), and so does a model the port does not know."""
     path = os.path.join(FIX, "ref_ckpt_raw.pth")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(KeyError, match="features.0"):
         timport.import_checkpoint(path, "mobilenetv2", device="cpu")
     with pytest.raises(ValueError):
         timport.import_checkpoint(path, "vgg16", device="cpu")

@@ -235,8 +235,8 @@ def test_sibling_domains_are_checked(models):
     ds["aq"] = ActQuant(ds["aq"].scale * 2, ds["aq"].zero_point)
     with pytest.raises(ValueError, match="invariant"):
         tstatic._validate_sibling_domains(tq)
-    with pytest.raises(NotImplementedError):
-        tstatic.bake({}, {}, {}, weight_bits=4)
+    with pytest.raises(ValueError, match="weight_bits"):
+        tstatic.bake({}, {}, {}, weight_bits=5)
 
 
 def test_pre_add_quant_takes_the_dequantize_route(monkeypatch):
