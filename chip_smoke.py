@@ -23,7 +23,8 @@ one line with its wall time:
                 at W4A8's four dense shapes and fc1's four groups
   4. depthwise  K4 bit-equal at MobileNetV2's 17 depthwise shapes at bs256:
                 int32, static int8, dynamic bf16, rounding ties, past the
-                fast division's range
+                fast division's range; and at its tiling edge cases (torch
+                pads at stride 2, odd H and W, N = 1, C = 8 and 20, wide)
   5. k1 stores  one forward of each model with every K1 and K4 launch held
                 against its plain version on the same inputs, bit for bit
   6. fused      K2 bit-equal to its plain version (fc1 / fc2 at bs1024 and
@@ -32,8 +33,13 @@ one line with its wall time:
   8. times      each kernel at its main-path shapes (CUDA events around
                 back-to-back calls), summed over one forward, beside its bound,
                 its plain version, the PyTorch call that computes the same
-                (torch._int_mm for K1's int32 store, F.conv2d in f32 for K4's)
-                or the unfused route it replaced, and the host's cost of a call
+                (torch._int_mm for K1's int32 store, F.conv2d for K4's: f32
+                NCHW and channels_last, and bf16 channels_last, not exact)
+                or the unfused route it replaced, and the host's cost of a
+                call; K4 per shape with its GB/s and share of its bound, on
+                the static and the dynamic MobileNetV2, as device time (20
+                launches in a CUDA graph, replayed: at the 7x7 and 14x14
+                shapes the host issues a call slower than the card runs it)
   9. paths      each model's forward with every count set to 0 just before it:
                 launch counts, logits bit-equal to the plain-version forward,
                 relative L2 to fp32, throughput and mfu ([main path], [static],
@@ -150,6 +156,21 @@ MNV2_IMAGE = 224
 # bs16 measured 0.0641 (static: min-max on 32 images, int8 stem) and 0.0669
 # (dynamic); the bound leaves 2.3x.
 MNV2_FP32_REL_L2_MAX = 0.15
+# K4's tiling edge cases beyond MobileNetV2's 17 shapes, (name, input NHWC,
+# stride, pads): torch's (1, 1) pads at stride 2 (imported torchvision
+# weights) at the four stride-2 shapes, odd H and W, one image, C = 8 and
+# C = 20 (the masked variant), and an image wider than one block.
+DW_EDGE_SHAPES = [
+    ("torch_pad_block1", (MNV2_BATCH, 112, 112, 96), 2, ((1, 1), (1, 1))),
+    ("torch_pad_block3", (MNV2_BATCH, 56, 56, 144), 2, ((1, 1), (1, 1))),
+    ("torch_pad_block6", (MNV2_BATCH, 28, 28, 192), 2, ((1, 1), (1, 1))),
+    ("torch_pad_block13", (MNV2_BATCH, 14, 14, 576), 2, ((1, 1), (1, 1))),
+    ("odd_n1", (1, 57, 55, 144), 2, ((1, 1), (1, 1))),
+    ("odd_s1", (3, 15, 13, 32), 1, ((1, 1), (1, 1))),
+    ("c8", (2, 29, 29, 8), 1, ((1, 1), (1, 1))),
+    ("c20", (2, 9, 9, 20), 2, ((0, 1), (0, 1))),
+    ("wide", (1, 6, 600, 16), 1, ((1, 1), (1, 1))),
+]
 # Static ResNet-50 with the space-to-depth stem (int8 stem: K1 at K = 192)
 # against the 7x7 tree with an int8 stem, both calibrated on the same images:
 # the stems quantize to the same int8 weights and input domain, and the other
@@ -215,6 +236,33 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, launches: int = 20, replays: int = 5) -> float:
+    """Device ms per call: `launches` calls captured in one CUDA graph and
+    the graph replayed `replays` times between CUDA events, after a warm-up
+    (the host's cost of a call left out: what a forward that queues its
+    launches ahead sees)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (launches * replays)
 
 
 def host_us(fn, iters: int = 200) -> float:
@@ -419,7 +467,8 @@ def depthwise_phase(torch, dev):
     (zero pad, relu6, the bf16 handoff); the int8 store on the requantize's
     hard inputs: every accumulator an exact multiple of the scale, 1/128 of
     them on a rounding tie of y / out_s, and (at two shapes) a domain past
-    the fast division's range."""
+    the fast division's range. Then the tiling's edge cases (DW_EDGE_SHAPES)
+    with the int32, static int8, dynamic bf16 and f32 stores."""
     from quantnet_torch.core.types import ActQuant
     from quantnet_torch.ops.depthwise_conv import depthwise_conv, depthwise_conv_plain
     from quantnet_torch.ops.int8_matmul import Epilogue
@@ -432,7 +481,7 @@ def depthwise_phase(torch, dev):
     i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
     err, n_cases = 0.0, 0
     shapes = mobilenet_dw_shapes(MNV2_BATCH, MNV2_IMAGE)
-    for i, (name, shape, stride, pads) in enumerate(shapes):
+    for i, (name, shape, stride, pads) in enumerate(shapes + DW_EDGE_SHAPES):
         c = shape[3]
         x = torch.randint(-128, 128, shape, generator=g, device=dev, dtype=torch.int8)
         w = torch.randint(-127, 128, (3, 3, 1, c), generator=g, device=dev, dtype=torch.int8)
@@ -444,9 +493,13 @@ def depthwise_phase(torch, dev):
             ("static int8", -9, Epilogue(cs=cs, bias=bias, zpw=zpw, act="relu6", out=torch.int8,
                                          out_quant=ActQuant(f32(0.0517), i32(-3)))),
             ("dynamic bf16", 0, Epilogue(cs=cs, bias=bias, act="relu6", out=torch.bfloat16)),
-            ("ties int8", -9, Epilogue(cs=torch.full((c,), 2.0**-14, device=dev), zpw=zpw,
-                                       out=torch.int8, out_quant=ActQuant(f32(2.0**-7), i32(5)))),
         ]
+        if i < len(shapes):
+            cases.append(("ties int8", -9, Epilogue(cs=torch.full((c,), 2.0**-14, device=dev), zpw=zpw,
+                                                    out=torch.int8,
+                                                    out_quant=ActQuant(f32(2.0**-7), i32(5)))))
+        else:
+            cases.append(("f32", 5, Epilogue(cs=cs, zpw=zpw)))
         if i < 2:
             cases.append(("slow int8", 0, Epilogue(cs=torch.full((c,), 2.0**-80, device=dev),
                                                    out=torch.int8,
@@ -459,14 +512,16 @@ def depthwise_phase(torch, dev):
                   f"depthwise {name} {kind}: {got.dtype}{tuple(got.shape)}")
             bad = int((got.view(bits[got.dtype]) != ref.view(bits[ref.dtype])).sum())
             err = max(err, (got.float() - ref.float()).abs().max().item())
-            check(bad == 0, f"depthwise_conv {name} {tuple(shape)} stride {stride} {kind}: {bad} of "
-                  f"{ref.numel()} differ from the plain version")
+            check(bad == 0, f"depthwise_conv {name} {tuple(shape)} stride {stride} pads {pads} {kind}: "
+                  f"{bad} of {ref.numel()} differ from the plain version")
             n_cases += 1
         del x, got, ref
     phase("depthwise", t0, f"K4 bit-equal to depthwise_conv_plain in {n_cases} cases: MobileNetV2's "
           f"{len(shapes)} depthwise shapes at bs{MNV2_BATCH} {MNV2_IMAGE}x{MNV2_IMAGE} (C 32 to 960, "
           "stride 1 and 2), the int32 accumulator, the static int8 and dynamic bf16 stores with "
-          "relu6, the int8 store on rounding ties and past the fast division's range")
+          "relu6, the int8 store on rounding ties and past the fast division's range; "
+          f"{len(DW_EDGE_SHAPES)} tiling edge cases ({', '.join(n for n, *_ in DW_EDGE_SHAPES)}) with "
+          "the int32, static int8, dynamic bf16 and f32 stores")
     return err
 
 
@@ -643,23 +698,80 @@ def _k1_fused_bytes(a, b, epi) -> int:
 
 
 def _time_depthwise(torch, x, w, stride, pads, pad_value, epi, iters):
-    """(kernel as launched, int32 store, plain, library) ms of one K4 call:
-    its fused store, its int32 store, the plain version, and one F.conv2d of
-    the values widened to f32 (NCHW, pre-padded, groups = C, TF32 off)."""
+    """(kernel as launched, int32 store, back-to-back, plain, library) ms of
+    one K4 call: its fused store and its int32 store as device time
+    (device_ms: at MobileNetV2's 7x7 and 14x14 shapes a call takes the host
+    longer to issue than the card to run), the fused store's back-to-back
+    calls between CUDA events (time_ms, as earlier runs timed it), the plain
+    version, and the PyTorch yardsticks: one F.conv2d (pre-padded, groups =
+    C, TF32 off) of the values widened to f32 in NCHW and in channels_last
+    (both exact), and in bf16 channels_last (the same work, not exact: the
+    products round), each between CUDA events."""
     import torch.nn.functional as F
 
     from quantnet_torch.ops.depthwise_conv import depthwise_conv, depthwise_conv_plain
 
-    ms = time_ms(lambda: depthwise_conv(x, w, stride, pads, pad_value, epi), iters)
-    int32_ms = time_ms(lambda: depthwise_conv(x, w, stride, pads, pad_value), iters)
+    ms = device_ms(lambda: depthwise_conv(x, w, stride, pads, pad_value, epi))
+    int32_ms = device_ms(lambda: depthwise_conv(x, w, stride, pads, pad_value))
+    events_ms = time_ms(lambda: depthwise_conv(x, w, stride, pads, pad_value, epi), iters)
     plain = time_ms(lambda: depthwise_conv_plain(x, w, stride, pads, pad_value, epi), max(iters // 4, 3))
     (pt, pb), (pl, pr) = pads
     xf = F.pad(x.float().permute(0, 3, 1, 2), (pl, pr, pt, pb), value=float(pad_value)).contiguous()
     wf = w.float().permute(3, 2, 0, 1).contiguous()
     cudnn = torch.backends.cudnn
+    lib = {}
     with cudnn.flags(enabled=True, benchmark=False, deterministic=False, allow_tf32=False):
-        lib = time_ms(lambda: F.conv2d(xf, wf, stride=stride, groups=x.shape[3]), iters)
-    return ms, int32_ms, plain, lib
+        for name, dtype, fmt in (("nchw_f32", torch.float32, torch.contiguous_format),
+                                 ("nhwc_f32", torch.float32, torch.channels_last),
+                                 ("nhwc_bf16", torch.bfloat16, torch.channels_last)):
+            xl = xf.to(dtype).contiguous(memory_format=fmt)
+            wl = wf.to(dtype).contiguous(memory_format=fmt)
+            lib[name] = time_ms(lambda: F.conv2d(xl, wl, stride=stride, groups=x.shape[3]), iters)
+            del xl
+    return ms, int32_ms, events_ms, plain, lib
+
+
+def _depthwise_bytes(shape, stride, w, epi):
+    """(bytes, operations) of one K4 call: x read once, the weight and the
+    vectors read once, y written once in its type; 2 x 9 integer operations
+    an output on the CUDA cores (not the tensor cores: held to the f32
+    rate), so bound by bytes at every shape."""
+    out = shape[0] * (-(-shape[1] // stride)) * (-(-shape[2] // stride)) * shape[3]
+    vectors = 0 if epi is None else sum(
+        t.numel() * t.element_size() for t in (epi.cs, epi.bias, epi.zpw) if t is not None)
+    itemsize = 4 if epi is None else epi.out.itemsize
+    return math.prod(shape) + w.numel() + vectors + out * itemsize, 18 * out
+
+
+def _time_k4_path(torch, calls, label):
+    """K4 at one path's depthwise calls: per shape its time, GB/s and share
+    of its bound, its int32 store, plain version and yardsticks; summed over
+    the forward's launches into (as launched, int32 store) sums, with the
+    yardsticks beside."""
+    acc, acc32 = _sums(), _sums()
+    lib_sum = {"events": 0.0}
+    for (shape, stride, store), (count, x, w, _, pads, pad_value, epi) in sorted(calls.items()):
+        ms, int32_ms, events_ms, plain, lib = _time_depthwise(torch, x, w, stride, pads, pad_value, epi, 20)
+        nbytes, ops = _depthwise_bytes(shape, stride, w, epi)
+        nbytes32, _ = _depthwise_bytes(shape, stride, w, None)
+        b_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+        b32_ms = max(nbytes32 / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+        fastest = min(lib.values())
+        print(f"  depthwise_conv {label} {'x'.join(map(str, shape))} stride {stride} {store} x{count}: "
+              f"kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s, {b_ms / ms:.1%} of its bound "
+              f"{b_ms:.4f} ms; back-to-back calls {events_ms:.4f} ms), int32 store {int32_ms:.4f} ms "
+              f"({b32_ms / int32_ms:.1%} of "
+              f"{b32_ms:.4f}), plain {plain:.4f} ms, F.conv2d f32 NCHW {lib['nchw_f32']:.4f} ms, "
+              f"f32 channels_last {lib['nhwc_f32']:.4f} ms, bf16 channels_last "
+              f"{lib['nhwc_bf16']:.4f} ms{'' if int32_ms <= fastest else ' (slower than F.conv2d)'}")
+        for a, t, nb in ((acc, ms, nbytes), (acc32, int32_ms, nbytes32)):
+            _add(a, count, t, plain, nb, 0, lib["nchw_f32"])
+            a["ops_ms"] += count * ops / F32_OPS_PER_S * 1e3
+            a["bound_ms"] += count * max(0.0, ops / F32_OPS_PER_S * 1e3 - nb / HBM_BYTES_PER_S * 1e3)
+        for k, v in lib.items():
+            lib_sum[k] = lib_sum.get(k, 0.0) + count * v
+        lib_sum["events"] += count * events_ms
+    return acc, acc32, lib_sum
 
 
 def k2_operands(torch, m):
@@ -706,7 +818,6 @@ def times_phase(torch, dev, k1_calls, dw_calls, models):
     k2 = {batch: _sums() for batch in FC_BATCHES}
     k2_own = {batch: 0.0 for batch in FC_BATCHES}
     k3 = _sums()
-    k4, k4_int32 = _sums(), _sums()
     gemms, boundaries = resnet_shapes(RESNET_BATCH, RESNET_IMAGE)
     # The int32 store at the K the kernel runs (conv1's 27 padded to 32;
     # the padded bytes count in the bound).
@@ -777,24 +888,8 @@ def times_phase(torch, dev, k1_calls, dw_calls, models):
               f"x{count}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms (bytes), plain {plain:.4f} ms")
         _add(k3, count, ms, plain, nbytes, 0)
         k3["ops_ms"] += count * ops / F32_OPS_PER_S * 1e3
-    for (shape, stride, store), (count, x, w, _, pads, pad_value, epi) in sorted(
-            dw_calls["mobilenetv2"].items()):
-        ms, int32_ms, plain, lib = _time_depthwise(torch, x, w, stride, pads, pad_value, epi, 20)
-        out = (shape[0] * (-(-shape[1] // stride)) * (-(-shape[2] // stride)) * shape[3])
-        vectors = sum(t.numel() * t.element_size() for t in (epi.cs, epi.bias, epi.zpw) if t is not None)
-        # x read once, the weight and the vectors read once, y written once;
-        # 2 x 9 integer operations per output on the CUDA cores (not the
-        # tensor cores: held to the f32 rate), so bound by bytes at every shape.
-        nbytes, ops = math.prod(shape) + w.numel() + vectors + out * epi.out.itemsize, 18 * out
-        nbytes32 = math.prod(shape) + w.numel() + 4 * out
-        b_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-        print(f"  depthwise_conv {'x'.join(map(str, shape))} stride {stride} {store} x{count}: kernel "
-              f"{ms:.4f} ms, int32 store {int32_ms:.4f} ms, bound {b_ms:.4f} ms (bytes), plain "
-              f"{plain:.4f} ms, F.conv2d f32 {lib:.4f} ms")
-        for acc, t, nb in ((k4, ms, nbytes), (k4_int32, int32_ms, nbytes32)):
-            _add(acc, count, t, plain, nb, 0, lib)
-            acc["ops_ms"] += count * ops / F32_OPS_PER_S * 1e3
-            acc["bound_ms"] += count * max(0.0, ops / F32_OPS_PER_S * 1e3 - nb / HBM_BYTES_PER_S * 1e3)
+    k4, k4_int32, k4_lib = _time_k4_path(torch, dw_calls["mobilenetv2"], "mobilenetv2")
+    k4_dyn, _, _ = _time_k4_path(torch, dw_calls["mobilenetv2_dynamic"], "mobilenetv2_dynamic")
     per_path = "; ".join(
         f"int8_gemm {p} int32 {k1_int32[p]['ms']:.4f} ms (bound {k1_int32[p]['bound_ms']:.4f}, "
         f"torch._int_mm {k1_int32[p]['library_ms']:.4f}), as launched {k1[p]['ms']:.4f} ms (bound "
@@ -808,8 +903,13 @@ def times_phase(torch, dev, k1_calls, dw_calls, models):
           f"{k1g['plain_ms']:.4f}); {per_batch}; fused_dynamic_gemm mobilenetv2 fc "
           f"{k2_mnv2['ms']:.4f} ms (bound {k2_mnv2['bound_ms']:.4f}); residual_boundary "
           f"{k3['ms']:.4f} ms (bound {k3['bound_ms']:.4f}, plain {k3['plain_ms']:.4f}); "
-          f"depthwise_conv mobilenetv2 {k4['ms']:.4f} ms (int32 store {k4_int32['ms']:.4f}, bound "
-          f"{k4['bound_ms']:.4f}, plain {k4['plain_ms']:.4f}, F.conv2d f32 {k4['library_ms']:.4f}); "
+          f"depthwise_conv mobilenetv2 {k4['ms']:.4f} ms of device time (bound {k4['bound_ms']:.4f}, "
+          f"{k4['bound_ms'] / k4['ms']:.1%}; back-to-back calls {k4_lib['events']:.4f}; int32 store "
+          f"{k4_int32['ms']:.4f}, bound "
+          f"{k4_int32['bound_ms']:.4f}; plain {k4['plain_ms']:.4f}; F.conv2d f32 NCHW "
+          f"{k4_lib['nchw_f32']:.4f}, f32 channels_last {k4_lib['nhwc_f32']:.4f}, bf16 channels_last "
+          f"{k4_lib['nhwc_bf16']:.4f}), mobilenetv2_dynamic {k4_dyn['ms']:.4f} ms (bf16 store, bound "
+          f"{k4_dyn['bound_ms']:.4f}, {k4_dyn['bound_ms'] / k4_dyn['ms']:.1%}); "
           f"host cost per call int8_gemm {host['int8_gemm']:.2f} us, fused_dynamic_gemm "
           f"{host['fused_dynamic_gemm']:.2f} us, torch._int_mm {host['torch._int_mm']:.2f} us")
     first = FC_BATCHES[0]
@@ -820,7 +920,11 @@ def times_phase(torch, dev, k1_calls, dw_calls, models):
                          f"bs{bt}_plain_ms": k2[bt]["plain_ms"]})
     k2_entry.update(mobilenetv2_fc_ms=k2_mnv2["ms"], mobilenetv2_fc_bound_ms=k2_mnv2["bound_ms"],
                     mobilenetv2_fc_plain_ms=k2_mnv2["plain_ms"])
-    k4_entry = dict(k4, int32_ms=k4_int32["ms"], int32_bound_ms=k4_int32["bound_ms"])
+    k4_entry = dict(k4, int32_ms=k4_int32["ms"], int32_bound_ms=k4_int32["bound_ms"],
+                    back_to_back_ms=k4_lib["events"],
+                    library_nhwc_f32_ms=k4_lib["nhwc_f32"], library_nhwc_bf16_ms=k4_lib["nhwc_bf16"],
+                    dynamic_ms=k4_dyn["ms"], dynamic_bound_ms=k4_dyn["bound_ms"],
+                    dynamic_plain_ms=k4_dyn["plain_ms"])
     return k1_int32, k1, k1g, k2_entry, k3, k4_entry
 
 
@@ -1706,13 +1810,17 @@ def main() -> int:
         return e
 
     def k4_entry(launches):
-        """K4 as MobileNetV2 launches it (17 depthwise convs with the int8
-        handoff and relu6), its int32 store beside one F.conv2d of the values
-        in f32 (groups = C, TF32 off)."""
+        """K4 as the static MobileNetV2 launches it (17 depthwise convs with
+        the int8 handoff and relu6), in device time (back_to_back_ms: the
+        same calls between CUDA events, host cost included), its int32 store
+        beside one F.conv2d of the values in f32 NCHW (groups = C, TF32 off;
+        library_ms) and in f32 and bf16 channels_last; and as the dynamic
+        MobileNetV2 launches it (the bf16 store)."""
         e = entry("depthwise_conv", "mobilenetv2", "depthwise_conv.cu",
                   "none: XLA's native grouped conv (quantnet/ops/conv.py:123-128)", launches,
-                  max(dw_err, store_errs["mobilenetv2"]["k4"]), k4, k4["library_ms"])
-        e.update(int32_ms=k4["int32_ms"], int32_bound_ms=k4["int32_bound_ms"])
+                  max(dw_err, store_errs["mobilenetv2"]["k4"], store_errs["mobilenetv2_dynamic"]["k4"]),
+                  k4, k4["library_ms"])
+        e.update({key: v for key, v in k4.items() if key not in _sums()})
         return e
 
     int8_err["mobilenetv2"] = store_errs["mobilenetv2"]["k1"]
@@ -1733,7 +1841,7 @@ def main() -> int:
           f"its paths; fused_dynamic_gemm, residual_boundary and depthwise_conv bit-equal; no "
           "PyTorch call computes K1's fused store, its grouped-K mode, K2 or K3 alone (library: "
           "none; int32_library_ms is torch._int_mm against K1's int32 store; K4's library_ms is "
-          "F.conv2d in f32 against its int32_ms)")
+          "F.conv2d in f32 against its int32_ms; K4's ms are device time)")
     print(f"total {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -51,10 +51,12 @@ SIGNATURES = {
     ),
     # depthwise_conv(x[N,H,W,C] s8, w[3,3,1,C] s8, y[N,Ho,Wo,C], N, H, W, C,
     #                Ho, Wo, stride, pad_top, pad_left, pad_value, store, cs[C],
-    #                bias[C], zpw[C], act, out_scale, out_zero_point, stream)
+    #                bias[C], zpw[C], act, out_scale, out_zero_point, band,
+    #                strip, chunk, groups, threads, smem_bytes, grid, vec,
+    #                stream)
     "depthwise_conv": (
         "depthwise_conv",
-        [_P, _P, _P, *[_I64] * 10, _C, _P, _P, _P, _C, _F, _F, _P],
+        [_P, _P, _P, *[_I64] * 10, _C, _P, _P, _P, _C, _F, _F, *[_I64] * 7, _C, _P],
     ),
     # residual_boundary(out[n] f32, identity[n] s8 or f32, q[n] s8, n,
     #                   int8_identity, id_scale, id_zero_point, out_scale,

@@ -14,12 +14,14 @@ so either package reads what the other writes. Every stage runs on the card
 cpu` runs the kernels' plain versions, for tests.
 
 Models: simple_convnet, resnet18/34/50/101/152 and mobilenetv2 (with a width
-suffix, mobilenetv2_0.5). Not ported yet, and refused by name: `train`,
-`qat`, `report`, `scaling` and `experiment`; the optimized scheme and
+suffix, mobilenetv2_0.5). `evaluate`, `bench` and `serve` load every artifact
+on disk, as the JAX CLI does: the schemes `quantize` writes, and the
+`optimized`, `qat`, `qat_int4` and `qat_w4a8` artifacts the JAX package
+writes. Not ported yet, and refused by name: the commands `train`, `qat`,
+`report`, `scaling` and `experiment`; `quantize --scheme optimized` and
 --equalize, --adaround-steps, --bias-correct, --int4-guard (ROADMAP Queue 1
-item 1, the accuracy tools); QAT artifacts and ImageNet data (Queue 1 item
-2); serving over several cards (--data-parallel) and bench's --s4-runtime
-(Queue 1 item 3).
+item 1, the accuracy tools); ImageNet data (Queue 1 item 2); serving over
+several cards (--data-parallel) and bench's --s4-runtime (Queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -35,18 +37,16 @@ from typing import Dict, Optional
 import numpy as np
 
 SCHEMES = ("bf16", "dynamic", "static", "weight_only", "weight_only_int4", "w4a8")
-RUNNABLE = ("fp32",) + SCHEMES
-# Artifacts the JAX package writes that the port cannot run yet, with the
-# ROADMAP item that brings each.
-LATER = {
-    "optimized": "ROADMAP Queue 1 item 1 (the accuracy tools)",
-    "qat": "ROADMAP Queue 1 item 2 (QAT)",
-    "qat_int4": "ROADMAP Queue 1 item 2 (QAT)",
-    "qat_w4a8": "ROADMAP Queue 1 item 2 (QAT)",
-}
+# Every artifact evaluate, bench and serve load, in the JAX CLI's order
+# (quantnet/cli/main.py:466-468): the port runs them all, but only the JAX
+# package produces the last four yet.
+RUNNABLE = ("fp32",) + SCHEMES + ("optimized", "qat", "qat_int4", "qat_w4a8")
 NOT_PORTED = (
-    "Not ported yet: the optimized scheme and --equalize, --adaround-steps, --bias-correct, "
-    "--int4-guard (ROADMAP Queue 1 item 1)."
+    "Not ported yet: the commands train, qat, report, scaling and experiment; quantizing with "
+    "the optimized scheme and --equalize, --adaround-steps, --bias-correct, --int4-guard "
+    "(ROADMAP Queue 1 item 1); --dataset imagenet (Queue 1 item 2); serve --data-parallel and "
+    "bench --s4-runtime (Queue 1 item 3). evaluate, bench and serve load the optimized and qat "
+    "artifacts the JAX package writes."
 )
 
 
@@ -190,15 +190,11 @@ def cmd_quantize(args):
         print(f"saved {name} artifact")
 
 
-def _collect_models(args, requested=()):
-    """{name: (apply_fn, params, state)} of the artifacts the port runs.
-    Asking for one the port cannot run yet exits, naming the ROADMAP item;
-    those on disk but not asked for are left out, and named on stderr."""
+def _collect_models(args):
+    """{name: (apply_fn, params, state)} of every artifact on disk, in the
+    JAX CLI's order."""
     from quantnet_torch.train import checkpoint as ckpt
 
-    for name in requested:
-        if name in LATER:
-            raise SystemExit(f"the {name!r} artifact is not ported yet: {LATER[name]}")
     _, test, classes = _load_data(args)
     fp32 = _load_fp32(args)
     apply_fn = _apply_fn(args.model, args.conv1_scale, _torch_pad(fp32[2] if fp32 else None))
@@ -208,10 +204,6 @@ def _collect_models(args, requested=()):
         if os.path.exists(path + ".json"):
             tree, _ = ckpt.load_artifact(path, device=args.device)
             models[name] = (apply_fn, tree["params"], tree["state"])
-    skipped = [n for n in LATER if os.path.exists(_artifact_path(args.save_dir, n) + ".json")]
-    if skipped:
-        print("left out, not ported yet: " + "; ".join(f"{n} ({LATER[n]})" for n in skipped),
-              file=sys.stderr)
     return models, test, classes
 
 
@@ -219,7 +211,7 @@ def cmd_evaluate(args):
     from quantnet_torch.evaluation.evaluator import compare_models
 
     subset = [m for m in (args.models or "").split(",") if m]
-    models, test, classes = _collect_models(args, subset)
+    models, test, classes = _collect_models(args)
     if not models:
         raise SystemExit("no artifacts to evaluate; run import-torch / quantize first")
     if subset:
@@ -292,8 +284,7 @@ def cmd_serve(args):
     """A load test of the continuous-batching engine over one artifact."""
     from quantnet_torch.serve import InferenceEngine
 
-    requested = (args.scheme,) if args.scheme in LATER else ()
-    models, test, _ = _collect_models(args, requested)
+    models, test, _ = _collect_models(args)
     if not models:
         raise SystemExit("no artifacts to serve; run import-torch / quantize first")
     if args.scheme is None:  # none named: static, else whatever is there
@@ -389,7 +380,7 @@ def build_parser() -> argparse.ArgumentParser:
     common(sp)
     sp.add_argument("--eval-batch-size", type=int, default=512)
     sp.add_argument("--models", default="",
-                    help="comma-separated subset of artifacts (default: all the port runs); "
+                    help="comma-separated subset of artifacts (default: all on disk); "
                          "a subset merges into an existing accuracy.json")
     sp.add_argument("--per-class", action="store_true",
                     help="print per-class accuracy (top 20, sorted desc)")

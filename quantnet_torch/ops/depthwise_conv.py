@@ -12,10 +12,14 @@ epilogue the kernel stores the int32 accumulator.
 
 `depthwise_conv` launches the kernel on a CUDA tensor and runs
 `depthwise_conv_plain` on a CPU tensor; there is no other route.
-`depthwise_conv.launches` counts kernel launches.
+`depthwise_conv.launches` counts kernel launches. `depthwise_plan` is the
+launch's geometry, which the wrapper passes to the kernel and the kernel
+checks against the shape.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -26,10 +30,107 @@ from quantnet_torch.ops.int8_matmul import _STORES, ACTS, Epilogue, apply_epilog
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 KERNEL = (3, 3)
+STRIDES = (1, 2)  # the kernel's
+
+# The kernel's fixed shape (csrc/depthwise_conv.cu): a thread owns QUAD
+# channels and a strip of STRIP output columns; a block has at most THREADS
+# threads and, for three blocks a SM (the kernel's launch bound), a staged
+# window of at most SMEM_BUDGET bytes (SMEM_MAX is a block's limit on an
+# H100; an SM has 228 KB, 1 KB of it reserved a block).
+STRIP = 4
+QUAD = 4
+BAND_ROWS = 7  # MobileNetV2's output heights at 224x224 are 7 * 2^k
+THREADS = 256
+SMEM_BUDGET = 72 * 1024
+SMEM_MAX = 227 * 1024
 
 
 def _out_size(size: int, lo: int, hi: int, k: int, stride: int) -> int:
     return (size + lo + hi - k) // stride + 1
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class DepthwisePlan:
+    """A launch's geometry. A block of `threads` owns one image, `band_rows`
+    output rows, `groups` strips of `strip` output columns and `chunk`
+    channels, and stages its input window (`rows_in` x `cols_in` pixels of
+    `pitch` bytes, `smem_bytes` in all) in shared memory; a thread owns QUAD
+    channels of one strip. The grid is images x chunks x column blocks x
+    bands, bands fastest. `vec`: the 16-byte variant (C % 16 == 0, aligned
+    pointers), else the masked one."""
+
+    band_rows: int
+    strip: int
+    chunk: int
+    groups: int
+    threads: int
+    smem_bytes: int
+    grid: int
+    bands: int
+    col_blocks: int
+    chunks: int
+    rows_in: int
+    cols_in: int
+    pitch: int
+    vec: bool
+
+
+@functools.lru_cache(maxsize=1024)
+def depthwise_plan(n: int, ho: int, wo: int, c: int, stride: int, vec: bool = True, *,
+                   threads: int = THREADS, smem_budget: int = SMEM_BUDGET,
+                   band_rows: int = BAND_ROWS) -> DepthwisePlan:
+    """The launch geometry of the depthwise conv kernel for an [n, ho, wo, c]
+    output at `stride`: as many threads a block as the channels and the
+    strips of a block give (at most `threads`), the tallest band (at most
+    `band_rows`) whose window fits `smem_budget`, column blocks evened out.
+    Chunks divide C where a divisor is at least half as wide as the evened
+    chunk, and start on 32-byte L2 sectors where C allows it: a chunk that
+    starts inside a sector makes two blocks fetch that sector (PERF.md §6,
+    MobileNetV2's 112x112x96 stride-2 conv). The keywords are the kernel's
+    bounds; tests lower them to cut small shapes into many blocks. Cached:
+    the wrapper asks at every call."""
+    if stride not in STRIDES:
+        raise ValueError(f"the depthwise conv kernel takes stride 1 or 2, got {stride}")
+    # Channels a chunk is a multiple of: whole sectors, or the staging's
+    # 16-byte units, or (masked) whole quads.
+    unit = (32 if c % 32 == 0 else 16) if vec else QUAD
+    step = unit // QUAD  # quads a unit
+    ng = _cdiv(wo, STRIP)
+    groups = min(ng, max(1, threads // step))
+    while True:
+        col_blocks = _cdiv(ng, groups)
+        groups = _cdiv(ng, col_blocks)
+        cols_in = (STRIP * groups - 1) * stride + 3
+        quads = max(step, threads // groups // step * step)
+        chunk = min(QUAD * quads, _cdiv(c, unit) * unit)
+        while True:
+            chunks = _cdiv(c, chunk)
+            even = _cdiv(_cdiv(c, chunks), unit) * unit
+            divisor = next((k for k in range(chunk // unit * unit, 0, -unit) if c % k == 0), 0)
+            chunk = divisor if 2 * divisor >= even else even
+            chunks = _cdiv(c, chunk)
+            pitch = _cdiv(chunk, 16) * 16
+            for band in range(min(band_rows, ho), 0, -1):
+                rows_in = (band - 1) * stride + 3
+                smem = rows_in * cols_in * pitch
+                if smem <= smem_budget:
+                    return DepthwisePlan(
+                        band_rows=band, strip=STRIP, chunk=chunk, groups=groups,
+                        threads=_cdiv(chunk // QUAD * groups, 32) * 32, smem_bytes=smem,
+                        grid=n * chunks * _cdiv(ho, band) * col_blocks, bands=_cdiv(ho, band),
+                        col_blocks=col_blocks, chunks=chunks, rows_in=rows_in, cols_in=cols_in,
+                        pitch=pitch, vec=vec)
+            if chunk == unit:
+                break
+            chunk = max(unit, chunk // 2 // unit * unit)
+        if groups == 1:
+            raise ValueError(f"no depthwise plan fits {smem_budget} bytes of shared memory: "
+                             f"output {n}x{ho}x{wo}x{c}, stride {stride}")
+        groups = _cdiv(groups, 2)
 
 
 def depthwise_acc_plain(x: torch.Tensor, w: torch.Tensor, stride: int, pads: Pads,
@@ -97,6 +198,8 @@ def depthwise_conv(x: torch.Tensor, w: torch.Tensor, stride: int, pads: Pads, pa
     if y.numel() == 0:
         return y
     x, w = x.contiguous(), w.contiguous()
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, y))
+    plan = depthwise_plan(n, ho, wo, c, stride, vec=c % 16 == 0 and aligned)
     if epi is None:
         store, ptrs, act, out_s, out_zp = 0, (None,) * 3, 0, 0.0, 0.0
     else:
@@ -107,7 +210,8 @@ def depthwise_conv(x: torch.Tensor, w: torch.Tensor, stride: int, pads: Pads, pa
     dev = x.get_device()
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, c, ho, wo, stride, pt, pl,
-                 int(pad_value), store, *ptrs, act, out_s, out_zp,
+                 int(pad_value), store, *ptrs, act, out_s, out_zp, plan.band_rows, plan.strip,
+                 plan.chunk, plan.groups, plan.threads, plan.smem_bytes, plan.grid, int(plan.vec),
                  torch._C._cuda_getCurrentRawStream(dev))
     _build.check(err, "depthwise_conv")
     depthwise_conv.launches += 1

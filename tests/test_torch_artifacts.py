@@ -1,13 +1,14 @@
 """The port's artifact I/O against the JAX package's, on the trained
 SimpleConvNet artifacts the repository tracks (runs/r3_cifar/saved/).
 
-- The port's `load_artifact` of each of the ten artifacts gives the JAX
+- The port's `load_artifact` of each of the eleven artifacts gives the JAX
   package's `load_artifact` converted with interop, leaf for leaf and bit for
   bit (dtypes included: bf16 stays bf16, int4 payloads unpack to int8).
 - A round trip port -> JAX -> port is bit-equal.
-- Ten of them run on both packages on 8 synthetic test images: logits
-  within 1e-4 x max|logit| for the float and weight-only schemes (measured
-  at most 1.7e-5, bf16) and within 1e-3 x max|logit| for the int8 schemes
+- All eleven run on both packages on 8 synthetic test images: logits
+  within 1e-4 x max|logit| for the float and weight-only schemes
+  (weight_only_int4_adaround, the AdaRound-refined int4 weights, included;
+  measured at most 1.7e-5, bf16) and within 1e-3 x max|logit| for the int8 schemes
   (measured 0: one requantize step at a rounding tie in the fp32 stem would
   show as about 1e-3), with the same argmax; the two W4A8 artifacts
   (w4a8 and its AdaRound-refined w4a8_adaround: 4-bit per-channel convs,
@@ -41,7 +42,7 @@ from test_torch_convnet import jit_unfused
 
 SAVED = pathlib.Path(__file__).resolve().parent.parent / "runs" / "r3_cifar" / "saved"
 RUNNABLE = ["fp32", "dynamic", "static", "qat", "weight_only", "weight_only_int4", "bf16", "optimized",
-            "w4a8", "w4a8_adaround"]
+            "w4a8", "w4a8_adaround", "weight_only_int4_adaround"]
 INT8_SCHEMES = {"dynamic", "static", "qat"}
 W4A8 = {"w4a8", "w4a8_adaround"}
 ALL = RUNNABLE

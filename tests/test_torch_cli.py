@@ -139,29 +139,91 @@ def test_unknown_model_and_missing_subset_fail(pipeline):
 
 
 def test_unported_schemes_and_flags_refused(pipeline, tmp_path, capsys):
+    """What only the JAX package produces yet is refused by name: the commands
+    that train or report, quantize's optimized scheme and the accuracy tools'
+    flags, ImageNet data, several cards and the s4 runtime. The artifacts
+    those commands write are not refused: evaluate, bench and serve load
+    them (test_optimized_and_qat_artifacts_load)."""
     base, d, _ = pipeline
     for argv in (["quantize", "--scheme", "optimized"],
                  ["quantize", "--equalize"], ["quantize", "--adaround-steps", "4"],
                  ["quantize", "--bias-correct"], ["quantize", "--int4-guard", "50"],
-                 ["serve", "--data-parallel", "2"], ["bench", "--s4-runtime"], ["train"]):
+                 ["serve", "--data-parallel", "2"], ["bench", "--s4-runtime"], ["train"],
+                 ["qat"], ["experiment"], ["report"], ["scaling"]):
         with pytest.raises(SystemExit) as e:
             main([*argv, *d])
         assert e.value.code == 2, argv  # argparse refuses it
     capsys.readouterr()
     with pytest.raises(SystemExit, match="Queue 1 item 2"):
+        main(["evaluate", "--dataset", "imagenet", *d])
+    # An artifact that is not on disk is missing, not unported.
+    with pytest.raises(SystemExit, match=r"no artifacts for \['qat'\]"):
         main(["evaluate", "--models", "qat", *d])
-    with pytest.raises(SystemExit, match="Queue 1 item 1"):
+    with pytest.raises(SystemExit, match="no artifact for 'optimized'"):
         main(["serve", "--scheme", "optimized", *d])
-    # Loading every artifact leaves the unported ones out, naming them.
-    for suffix in (".json", ".npz"):
-        shutil.copy(SAVED / f"optimized{suffix}", base / "saved" / f"optimized{suffix}")
+
+
+@pytest.fixture
+def with_tracked(pipeline):
+    """The pipeline's save dir with the tracked optimized and qat artifacts
+    (runs/r3_cifar/saved) copied in, removed afterwards."""
+    base, d, _ = pipeline
+    copied = [base / "saved" / f"{name}{suffix}" for name in ("optimized", "qat")
+              for suffix in (".json", ".npz")]
+    for path in copied:
+        shutil.copy(SAVED / path.name, path)
     try:
-        out = main(["evaluate", *d, "--synthetic-test-size", "32"])
+        yield base, d
     finally:
-        for suffix in (".json", ".npz"):
-            os.remove(base / "saved" / f"optimized{suffix}")
-    assert "optimized" not in out
-    assert "left out, not ported yet: optimized (ROADMAP Queue 1 item 1" in capsys.readouterr().err
+        for path in copied:
+            os.remove(path)
+
+
+def test_optimized_and_qat_artifacts_load(with_tracked, monkeypatch):
+    """evaluate and bench list the optimized and qat artifacts beside the
+    schemes the port quantized, in the JAX CLI's order; evaluate scores them
+    and serve serves them by name."""
+    from quantnet_torch.bench.benchmark import InferenceBenchmark
+
+    base, d = with_tracked
+    out = main(["evaluate", *d, "--synthetic-test-size", "32"])
+    assert list(out) == ["fp32", "dynamic", "static", "optimized", "qat"]
+    assert all(r["n"] == 32 for r in out.values())
+    # bench measures on the card only; here it lists what it would measure.
+    listed = []
+
+    def compare_models(self, models, batch_sizes):
+        listed.extend(models)
+        return {name: {f"bs{bs}": {"mean_ms": 1.0, "images_per_s": 1.0} for bs in batch_sizes}
+                for name in models}
+
+    monkeypatch.setattr(InferenceBenchmark, "compare_models", compare_models)
+    main(["bench", *d, "--batch-sizes", "1"])
+    assert listed == ["fp32", "dynamic", "static", "optimized", "qat"]
+    for scheme in ("optimized", "qat"):
+        served = main(["serve", "--scheme", scheme, "--requests", "8", "--buckets", "8", *d])
+        assert served["name"] == scheme and served["stats"]["requests"] == 8
+
+
+def test_tracked_artifact_subset_scores_like_jax(with_tracked, monkeypatch):
+    """evaluate --models optimized,qat scores the two artifacts as the JAX
+    package's forward does on the same 64 synthetic images: top-1 within one
+    image (the dynamic layers' per-row quantize and a requantize at a
+    rounding tie may move a near-tie argmax)."""
+    from quantnet.data.datasets import load_cifar10 as j_load_cifar10
+
+    monkeypatch.setattr(jcfg.flags, "int8_matmul_backend", "xla")
+    monkeypatch.setattr(jcfg.flags, "int8_conv_backend", "xla")
+    base, d = with_tracked
+    out = main(["evaluate", "--models", "optimized,qat", *d, "--synthetic-test-size", "64"])
+    assert set(out) == {"optimized", "qat"}
+    _, test = j_load_cifar10(str(base / "data"), synthetic_train_size=8, synthetic_test_size=64)
+    for name in ("optimized", "qat"):
+        jt, _ = jckpt.load_artifact(str(SAVED / name))
+        logits = np.asarray(jit_unfused(lambda p, s, x: jconvnet.apply(p, s, x)[0], jt["params"],
+                                        jt["state"], jnp.asarray(test.images)))
+        top1 = float(np.mean(logits.argmax(1) == test.labels))
+        assert out[name]["top1"] == pytest.approx(top1, abs=1 / 64 + 1e-9), name
 
 
 def test_help_names_what_is_not_ported(capsys):

@@ -386,11 +386,16 @@ def test_grouped_mode_refuses_a_group_off_32(dev):
         int8_gemm_epilogue(a, torch.zeros((8, 64), dtype=torch.int8, device=dev), epi)
 
 
-# MobileNetV2's depthwise convs at a small batch (N, H, C, stride, pads), and
-# a channel count off the kernel's 8-channel vector (its byte-load path).
+# MobileNetV2's depthwise convs at a small batch (N, H, C, stride, pads), a
+# channel count off the kernel's 16-byte vector (its masked variant), and the
+# tiling's edge cases: torch's (1, 1) pads at stride 2, odd H, one image,
+# C = 8, and an image wider than one block (several column blocks).
 DW_SHAPES = [(2, 112, 32, 1, ((1, 1), (1, 1))), (2, 112, 96, 2, ((0, 1), (0, 1))),
              (2, 56, 144, 2, ((1, 1), (1, 1))), (3, 14, 576, 2, ((0, 1), (0, 1))),
-             (3, 7, 960, 1, ((1, 1), (1, 1))), (2, 9, 20, 2, ((0, 1), (0, 1)))]
+             (3, 7, 960, 1, ((1, 1), (1, 1))), (2, 9, 20, 2, ((0, 1), (0, 1))),
+             (1, 112, 96, 2, ((1, 1), (1, 1))), (1, 57, 144, 2, ((1, 1), (1, 1))),
+             (2, 15, 32, 1, ((1, 1), (1, 1))), (2, 29, 8, 1, ((1, 1), (1, 1))),
+             (1, 300, 16, 1, ((1, 1), (1, 1)))]
 
 
 @pytest.mark.parametrize("store", ["int32", "static_int8", "dynamic_bf16", "f32"])
@@ -427,6 +432,32 @@ def test_depthwise_conv_refuses_other_kernels(dev):
     x = torch.zeros((1, 8, 8, 16), dtype=torch.int8, device=dev)
     with pytest.raises(ValueError, match="3x3"):
         depthwise_conv(x, torch.zeros((5, 5, 1, 16), dtype=torch.int8, device=dev), 1, ((2, 2), (2, 2)), 0)
+    with pytest.raises(ValueError, match="stride 1 or 2"):
+        depthwise_conv(x, torch.zeros((3, 3, 1, 16), dtype=torch.int8, device=dev), 3, ((1, 1), (1, 1)), 0)
+
+
+def test_depthwise_conv_checks_its_plan(dev):
+    """The kernel checks the plan against the shape and refuses one that
+    does not fit it, without launching."""
+    from quantnet_torch import _build
+    from quantnet_torch.ops.depthwise_conv import depthwise_plan
+
+    x = torch.zeros((1, 14, 14, 32), dtype=torch.int8, device=dev)
+    w = torch.zeros((3, 3, 1, 32), dtype=torch.int8, device=dev)
+    y = torch.empty((1, 14, 14, 32), dtype=torch.int32, device=dev)
+    plan = depthwise_plan(1, 14, 14, 32, 1)
+    fn = _build.kernel("depthwise_conv")
+    args = (x.data_ptr(), w.data_ptr(), y.data_ptr(), 1, 14, 14, 32, 14, 14, 1, 1, 1, 0, 0, None, None,
+            None, 0, 0.0, 0.0)
+    plan_args = [plan.band_rows, plan.strip, plan.chunk, plan.groups, plan.threads, plan.smem_bytes,
+                 plan.grid, int(plan.vec)]
+    stream = torch.cuda.current_stream().cuda_stream
+    assert fn(*args, *plan_args, stream) == 0
+    for i, wrong in ((5, plan.smem_bytes - 16), (6, plan.grid + 1), (4, 16), (1, 3)):
+        bad = list(plan_args)
+        bad[i] = wrong
+        assert fn(*args, *bad, stream) < 0, (i, wrong)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("scheme,launches", [("static", (36, 0, 17)), ("dynamic", (35, 1, 17))])
