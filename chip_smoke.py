@@ -56,18 +56,28 @@ one line with its wall time:
                 and launching, in a device trace, what the wrappers count in
                 it; trickle and burst loads; every served request bit-equal
  13. observers  static ResNet-50 calibrated with the histogram and MSE observers
- 14. cli        python -m quantnet_torch in process: the reference convnet
+ 14. accuracy   the accuracy tools at full width: MobileNetV2 1.0's optimized
+                sweep (53 gated forwards, the quantized lanes through K1, K4
+                and K2; the damage map bit-equal to the plain sweep's, the
+                optimized logits bit-equal to their plain run); ResNet-50's
+                cross-layer equalization, int4 guard, W4A8 AdaRound and bias
+                correction (values within 1 LSB, the refined tree's forward
+                bit-equal to its plain run)
+ 15. cli        python -m quantnet_torch in process: the reference convnet
                 checkpoint import-torch -> quantize static -> evaluate ->
-                bench -> serve; a torchvision MobileNetV2 state dict the same
-                way with quantize w4a8
- 15. kernels    one JSON line with an entry per kernel and path (K1 on four
-                paths, K1's grouped-K mode, K2, K3, K4), its numbers and its
-                launches through the serving engine, counted in device traces
+                bench -> serve; then quantize all with every accuracy tool ->
+                evaluate the eight artifacts -> serve optimized; a
+                torchvision MobileNetV2 state dict with quantize w4a8
+ 16. kernels    one JSON line with an entry per kernel and path (K1 on four
+                paths, K1's grouped-K mode, K2, K3, K4), its numbers, its
+                launches through the serving engine, counted in device traces,
+                and the [accuracy] runs' launches
 Any failed check raises before the last line, which is the only place that
 prints {"ok": true, ...}. Nothing is written outside build/ (gitignored).
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -156,6 +166,21 @@ MNV2_IMAGE = 224
 # bs16 measured 0.0641 (static: min-max on 32 images, int8 stem) and 0.0669
 # (dynamic); the bound leaves 2.3x.
 MNV2_FP32_REL_L2_MAX = 0.15
+# The accuracy tools ([accuracy]): one probe batch of 16 for the optimized
+# sweep on MobileNetV2 1.0 and two for ResNet-50's int4 guard and W4A8
+# calibration; AdaRound on those 32 images (ResNet-50's per-layer inputs
+# and outputs are some 100 MB an image in f32: the JAX default of 512 would
+# not fit on the card) for 100 steps.
+ACCURACY_BATCH = 16
+ADAROUND_STEPS = 100
+ADAROUND_EXAMPLES = 32
+# Cross-layer equalization keeps ResNet-50's function (ReLU, intra-block
+# pairs), up to f32 rounding.
+EQUALIZE_REL_L2_MAX = 1e-4
+# The refined and corrected W4A8 ResNet-50 (4-bit weights on random ones)
+# against fp32, relative L2 of the logits: a sanity bound; the figure is
+# printed beside nearest rounding's.
+W4A8_RESNET_REL_L2_MAX = 1.0
 # K4's tiling edge cases beyond MobileNetV2's 17 shapes, (name, input NHWC,
 # stride, pads): torch's (1, 1) pads at stride 2 (imported torchvision
 # weights) at the four stride-2 shapes, odd H and W, one image, C = 8 and
@@ -1627,6 +1652,141 @@ def observers_phase(torch, dev, m):
     phase("observers", t0, f"static ResNet-50 bs{RESNET_BATCH}, finite logits; " + "; ".join(parts))
 
 
+def _top(damage: dict, n: int = 3) -> str:
+    return ", ".join(f"{p} {d:.6g}" for p, d in sorted(damage.items(), key=lambda kv: -kv[1])[:n])
+
+
+def accuracy_phase(torch, dev, models):
+    """The accuracy tools at full width, each path driven with every count
+    set to 0 just before it and read just after.
+    MobileNetV2 1.0, 224x224: quantize_optimized (the sensitivity sweep on
+    one probe batch of ACCURACY_BATCH: 53 gated forwards, the quantized
+    lanes through K1's f32 store, K4 and K2), its damage map bit-equal to
+    the same sweep on the plain versions, the same table, and the optimized
+    tree's logits bit-equal to its plain run.
+    ResNet-50, 224x224: cross-layer equalization (logits within
+    EQUALIZE_REL_L2_MAX of the unequalized fold's); int4_guard on two
+    batches (the guard set equal to the plain run's); the W4A8 bake from
+    those 32 images, AdaRound (ADAROUND_STEPS steps, max_examples 32) and
+    bias correction: every value within 1 LSB of nearest rounding, the hard
+    rounding's reconstruction loss below nearest rounding's, and the refined
+    and corrected tree's forward at bs128 (K1, its grouped-K mode at the fc,
+    K3) bit-equal to its plain run. Returns the launches of each run."""
+    from quantnet_torch.core.config import Flags
+    from quantnet_torch.models import mobilenet, resnet
+    from quantnet_torch.quantize import adaround, fold, policy, static
+    from quantnet_torch.quantize.bias_correct import bias_correct
+    from quantnet_torch.quantize.equalize import cross_layer_equalize
+
+    plain = Flags(plain=True)
+    gen = torch.Generator().manual_seed(SEED + 3)
+    shape = (ACCURACY_BATCH, MNV2_IMAGE, MNV2_IMAGE, 3)
+    batches = [torch.randn(shape, generator=gen).to(dev) for _ in range(2)]
+    out = {}
+
+    t0 = time.perf_counter()
+    mp, ms = models["mobilenetv2"]["params"], models["mobilenetv2"]["state"]
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    t1 = time.perf_counter()
+    q, qs, table = policy.quantize_optimized(mp, ms, mobilenet.apply, batches[:1])
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t1
+    out["sweep"] = launches = _launch_counts()
+    want = {"int8_gemm": 35, "int8_gemm_grouped": 0, "fused_dynamic_gemm": 1,
+            "residual_boundary": 0, "depthwise_conv": 17}
+    check(launches == want, f"[accuracy] sweep launches {launches}, expected {want}")
+    damage = policy.measure_sensitivity(mobilenet.apply, mp, ms, batches[:1])
+    damage_plain = policy.measure_sensitivity(functools.partial(mobilenet.apply, flags=plain),
+                                              mp, ms, batches[:1])
+    check(len(damage) == 53 and all(math.isfinite(d) for d in damage.values()),
+          f"[accuracy] damage map: {len(damage)} layers")
+    diff = [p for p in damage if damage[p] != damage_plain[p]]
+    check(not diff, f"[accuracy] damage not bit-equal to the plain sweep at {diff[:5]}")
+    check(policy.build_policy(damage) == table == policy.build_policy(damage_plain),
+          "[accuracy] the optimized table differs from the plain sweep's")
+    x = batches[1]
+    logits, _ = mobilenet.apply(q, qs, x)
+    ref, _ = mobilenet.apply(q, qs, x, flags=plain)
+    check(bool(torch.isfinite(logits).all()) and torch.equal(logits.view(torch.int32),
+                                                              ref.view(torch.int32)),
+          "[accuracy] the optimized tree's logits are not bit-equal to its plain run")
+    kept = sorted(p for p, v in table.items() if v == "bf16")
+    phase("accuracy mobilenetv2", t0, f"quantize_optimized, sensitivity on 1 batch of "
+          f"{ACCURACY_BATCH} at {MNV2_IMAGE}x{MNV2_IMAGE}: sweep {sweep_s:.3f} s (53 gated "
+          f"forwards), launches {launches}; damage bit-equal to the plain sweep, most sensitive: "
+          f"{_top(damage)}; {len(kept)} layers kept bf16; optimized logits bit-equal to plain")
+
+    t0 = time.perf_counter()
+    m = models["resnet50"]
+    params, state = m["params"], m["state"]
+    calib = [torch.randn((ACCURACY_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3), generator=gen).to(dev)
+             for _ in range(2)]
+    fparams, fstate = fold.fold_model(params, state)
+    t1 = time.perf_counter()
+    ep, es = cross_layer_equalize(params, state)
+    torch.cuda.synchronize()
+    equalize_s = time.perf_counter() - t1
+    fp32, _ = resnet.apply(fparams, fstate, calib[0])
+    eq, _ = resnet.apply(ep, es, calib[0])
+    eq_rel = ((eq - fp32).norm() / fp32.norm()).item()
+    check(eq_rel < EQUALIZE_REL_L2_MAX, f"[accuracy] equalized logits: rel L2 {eq_rel}")
+    t1 = time.perf_counter()
+    guard = policy.int4_guard(resnet.apply, params, state, calib)
+    torch.cuda.synchronize()
+    guard_s = time.perf_counter() - t1
+    guard_plain = policy.int4_guard(functools.partial(resnet.apply, flags=plain), params, state,
+                                    calib)
+    check(guard == guard_plain, f"[accuracy] guard {sorted(guard)} != plain {sorted(guard_plain)}")
+    act = static.calibrate(resnet.apply, fparams, fstate, calib)
+    nq, nqs = static.bake(fparams, fstate, act, skip_first_layer=True, weight_bits=4,
+                          weight_group_size=W4A8_GROUP)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rq, rqs = adaround.refine(nq, nqs, params, state, resnet.apply, calib, steps=ADAROUND_STEPS,
+                              max_examples=ADAROUND_EXAMPLES)
+    torch.cuda.synchronize()
+    refine_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    cq, cqs = bias_correct(rq, rqs, params, state, resnet.apply, calib,
+                           max_examples=ADAROUND_EXAMPLES)
+    torch.cuda.synchronize()
+    correct_s = time.perf_counter() - t1
+    moved = total = 0
+    for path in adaround._refinable_paths(nq):
+        node_n, node_r = nq, rq
+        for k in path.split("/"):
+            node_n, node_r = node_n[k], node_r[k]
+        a, b = node_r["w"].values.int(), node_n["w"].values.int()
+        check((a - b).abs().max().item() <= 1 and a.abs().max().item() <= 7,
+              f"[accuracy] {path}: a refined value moved more than 1 LSB or left [-7, 7]")
+        moved += int((a != b).sum())
+        total += a.numel()
+    nearest_loss = adaround.reconstruction_loss(nq, params, state, resnet.apply, calib,
+                                                max_examples=ADAROUND_EXAMPLES)
+    refined_loss = adaround.reconstruction_loss(rq, params, state, resnet.apply, calib,
+                                                max_examples=ADAROUND_EXAMPLES)
+    check(refined_loss < nearest_loss,
+          f"[accuracy] reconstruction loss {refined_loss} not below nearest rounding's {nearest_loss}")
+    x = m["x"]
+    fp32, _ = resnet.apply(fparams, fstate, x)
+    near, _ = resnet.apply(nq, nqs, x)
+    near_rel = ((near - fp32).norm() / fp32.norm()).item()
+    want = {"int8_gemm": 53, "int8_gemm_grouped": 1, "fused_dynamic_gemm": 0,
+            "residual_boundary": 15, "depthwise_conv": 0}
+    run = dict(apply=resnet.apply, params=params, state=state, q=cq, qs=cqs, x=x)
+    _, out["refined"], msg = _path_run(torch, "accuracy resnet50", run, want, W4A8_RESNET_REL_L2_MAX,
+                                       1000)
+    phase("accuracy resnet50", t0, f"equalize {equalize_s:.3f} s (rel L2 {eq_rel:.3g} to the "
+          f"fold); int4 guard on 2 batches of {ACCURACY_BATCH} {guard_s:.3f} s, guard "
+          f"{sorted(guard)} as the plain run's; W4A8: AdaRound {ADAROUND_STEPS} steps on "
+          f"{ADAROUND_EXAMPLES} images {refine_s:.3f} s ({moved} of {total} values moved, all within 1 LSB; hard "
+          f"reconstruction loss {refined_loss:.6g} against nearest rounding's {nearest_loss:.6g}), "
+          f"bias correction {correct_s:.3f} s; refined + corrected bs{RESNET_BATCH}: {msg}; "
+          f"nearest-rounding W4A8 rel L2 {near_rel:.4f}")
+    return out
+
+
 def torchvision_mobilenet_state_dict(torch, num_classes: int = 10) -> dict:
     """A torchvision mobilenet_v2 state dict of random weights (the port's
     init, seed 0), laid out as torchvision names and shapes them: what a user
@@ -1691,6 +1851,33 @@ def cli_phase(torch):
           f"{acc['fp32']['top1']:.4f}, static {acc['static']['top1']:.4f}) -> bench (static bs1024 "
           f"p50 {bench['static']['bs1024']['p50_ms']:.4f} ms) -> serve u8 (256 requests, "
           f"{256 / served['seconds']:.1f} req/s)")
+
+    # The accuracy tools through the CLI: every scheme with equalization, the
+    # int4 guard, AdaRound and bias correction; the optimized artifact served.
+    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=root / "build") as d:
+        args = ["--save-dir", f"{d}/saved", "--results-dir", f"{d}/results", "--data-dir", f"{d}/data",
+                "--synthetic-train-size", "2048", "--synthetic-test-size", "2560"]
+        cli(["import-torch", "--ckpt", str(root / "tests" / "fixtures" / "ref_ckpt_dict.pth"), *args])
+        t3 = time.perf_counter()
+        cli(["quantize", "--scheme", "all", "--equalize", "--int4-guard", "50", "--adaround-steps",
+             "20", "--bias-correct", *args])
+        quantize_s = time.perf_counter() - t3
+        with open(f"{d}/saved/optimized.json") as f:
+            table = json.load(f)["metadata"]["policy"]
+        acc = cli(["evaluate", *args])
+        served = cli(["serve", "--scheme", "optimized", "--wire", "u8", "--requests", "256", *args])
+    want = ["fp32", "bf16", "dynamic", "static", "weight_only", "weight_only_int4", "w4a8", "optimized"]
+    check(list(acc) == want and all(r["n"] == 2560 for r in acc.values()),
+          f"[cli accuracy] evaluate: {list(acc)}")
+    check(isinstance(table, dict) and len(table) == 8 and set(table.values()) <= {"bf16", "weight_only"},
+          f"[cli accuracy] optimized policy {table}")
+    check(served["stats"]["requests"] == 256 and served["name"] == "optimized", "[cli accuracy] serve")
+    phase("cli accuracy", t2, f"import-torch -> quantize all --equalize --int4-guard 50 "
+          f"--adaround-steps 20 --bias-correct ({quantize_s:.2f} s; optimized keeps "
+          f"{sorted(p for p, v in table.items() if v == 'bf16')} in bf16) -> evaluate (top-1 "
+          + ", ".join(f"{n} {r['top1']:.4f}" for n, r in acc.items())
+          + f") -> serve optimized u8 (256 requests, {256 / served['seconds']:.1f} req/s)")
 
     t1 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=root / "build") as d:
@@ -1758,6 +1945,7 @@ def main() -> int:
     bench_torch_phase()
     serving = serve_phase(torch, dev, models)
     observers_phase(torch, dev, models["resnet50"])
+    accuracy = accuracy_phase(torch, dev, models)
     cli_phase(torch)
 
     def entry(kname, path, source, replaces, launches, err, sums, library):
@@ -1837,6 +2025,18 @@ def main() -> int:
               boundary_err, k3, None),
         k4_entry(mnv2_launches["mobilenetv2"]["depthwise_conv"]),
     )] + [grouped_entry(w4a8_launches["int8_gemm_grouped"])]
+    # The [accuracy] paths' launches, beside the entries whose kernels they
+    # drive: MobileNetV2's sensitivity sweep (K1, K2, K4) and the refined
+    # W4A8 ResNet-50's forward (K1, its grouped-K mode, K3).
+    swept = {("int8_gemm", "mobilenetv2"), ("fused_dynamic_gemm", "convnet"),
+             ("depthwise_conv", "mobilenetv2")}
+    refined = {("int8_gemm", "resnet50"), ("residual_boundary", "resnet50"),
+               ("int8_gemm_grouped", "convnet_w4a8")}
+    for e in kernels:
+        if (e["name"], e["path"]) in swept:
+            e["accuracy_sweep_launches"] = accuracy["sweep"][e["name"]]
+        if (e["name"], e["path"]) in refined:
+            e["accuracy_refined_launches"] = accuracy["refined"][e["name"]]
     print(f"kernels: int8_gemm exact (int32) and bit-equal (every store, the grouped-K mode) on "
           f"its paths; fused_dynamic_gemm, residual_boundary and depthwise_conv bit-equal; no "
           "PyTorch call computes K1's fused store, its grouped-K mode, K2 or K3 alone (library: "

@@ -4,6 +4,8 @@
     python -m quantnet_torch import-torch --ckpt model.pth
     python -m quantnet_torch quantize --scheme static --observer histogram
     python -m quantnet_torch quantize --scheme w4a8 --int4-group-size 128
+    python -m quantnet_torch quantize --equalize --int4-guard 50 --adaround-steps 400 \
+        --bias-correct
     python -m quantnet_torch evaluate --models fp32,static --per-class
     python -m quantnet_torch bench --batch-sizes 1,32,1024
     python -m quantnet_torch serve --scheme static --wire u8
@@ -14,13 +16,18 @@ so either package reads what the other writes. Every stage runs on the card
 cpu` runs the kernels' plain versions, for tests.
 
 Models: simple_convnet, resnet18/34/50/101/152 and mobilenetv2 (with a width
-suffix, mobilenetv2_0.5). `evaluate`, `bench` and `serve` load every artifact
-on disk, as the JAX CLI does: the schemes `quantize` writes, and the
-`optimized`, `qat`, `qat_int4` and `qat_w4a8` artifacts the JAX package
-writes. Not ported yet, and refused by name: the commands `train`, `qat`,
-`report`, `scaling` and `experiment`; `quantize --scheme optimized` and
---equalize, --adaround-steps, --bias-correct, --int4-guard (ROADMAP Queue 1
-item 1, the accuracy tools); ImageNet data (Queue 1 item 2); serving over
+suffix, mobilenetv2_0.5). `quantize` writes the seven schemes of the JAX
+CLI, `optimized` (the measured mixed-precision policy, written into the
+artifact's meta) among them, with its accuracy tools in the JAX CLI's order
+and scope (quantnet/cli/main.py:135-246, 310-318): --equalize before every
+scheme; --int4-guard measured on the first two calibration batches and
+applied to weight_only_int4 and w4a8; --adaround-steps and then
+--bias-correct on the requested sub-byte tiers; the optimized sweep on the
+first quarter of the calibration batches. `evaluate`, `bench` and `serve`
+load every artifact on disk, as the JAX CLI does, the `qat`, `qat_int4` and
+`qat_w4a8` artifacts the JAX package writes among them. Not ported yet, and
+refused by name: the commands `train`, `qat`, `report`, `scaling` and
+`experiment` and ImageNet data (ROADMAP Queue 1 item 2); serving over
 several cards (--data-parallel) and bench's --s4-runtime (Queue 1 item 3).
 """
 from __future__ import annotations
@@ -36,17 +43,16 @@ from typing import Dict, Optional
 
 import numpy as np
 
-SCHEMES = ("bf16", "dynamic", "static", "weight_only", "weight_only_int4", "w4a8")
+SCHEMES = ("bf16", "dynamic", "static", "weight_only", "weight_only_int4", "w4a8", "optimized")
+SUB_BYTE = ("weight_only_int4", "w4a8")
 # Every artifact evaluate, bench and serve load, in the JAX CLI's order
 # (quantnet/cli/main.py:466-468): the port runs them all, but only the JAX
-# package produces the last four yet.
-RUNNABLE = ("fp32",) + SCHEMES + ("optimized", "qat", "qat_int4", "qat_w4a8")
+# package produces the last three yet.
+RUNNABLE = ("fp32",) + SCHEMES + ("qat", "qat_int4", "qat_w4a8")
 NOT_PORTED = (
-    "Not ported yet: the commands train, qat, report, scaling and experiment; quantizing with "
-    "the optimized scheme and --equalize, --adaround-steps, --bias-correct, --int4-guard "
-    "(ROADMAP Queue 1 item 1); --dataset imagenet (Queue 1 item 2); serve --data-parallel and "
-    "bench --s4-runtime (Queue 1 item 3). evaluate, bench and serve load the optimized and qat "
-    "artifacts the JAX package writes."
+    "Not ported yet: the commands train, qat, report, scaling and experiment, and --dataset "
+    "imagenet (ROADMAP Queue 1 item 2); serve --data-parallel and bench --s4-runtime (Queue 1 "
+    "item 3). evaluate, bench and serve load the qat artifacts the JAX package writes."
 )
 
 
@@ -131,36 +137,105 @@ def _calibration_batches(train, args):
     return [torch.from_numpy(x).to(args.device) for x in itertools.islice(full, args.calibration_batches)]
 
 
-def _quantize(name, params, state, calibrated, args):
-    """One scheme's tree. The static schemes (static, w4a8) bake from one
-    calibration, `calibrated()`: (folded params, state, activation qparams)."""
-    from quantnet_torch.quantize import bf16, dynamic, static, weight_only
+class _Inputs:
+    """What the schemes share, each made once, when a scheme first needs it:
+    the calibration batches, the static calibration (folded params, state,
+    activation qparams) and the int4 guard."""
 
+    def __init__(self, params, state, apply_fn, train, args):
+        self.params, self.state, self.apply_fn = params, state, apply_fn
+        self.train, self.args = train, args
+
+    @functools.cached_property
+    def calib(self) -> list:
+        return _calibration_batches(self.train, self.args)
+
+    @functools.cached_property
+    def calibrated(self):
+        from quantnet_torch.quantize import static
+        from quantnet_torch.quantize.fold import fold_model
+
+        fparams, fstate = fold_model(self.params, self.state)
+        act = static.calibrate(self.apply_fn, fparams, fstate, self.calib,
+                               observer=self.args.observer,
+                               include_output_stats=self.args.pre_add_quant)
+        return fparams, fstate, act
+
+    @functools.cached_property
+    def guard(self) -> dict:
+        """The measured int4 guard (--int4-guard > 0): layers whose 4-bit
+        damage on the first two calibration batches is an outlier keep 8-bit
+        weights in the sub-byte tiers (quantnet/cli/main.py:170-187)."""
+        if not self.args.int4_guard > 0:
+            return {}
+        from quantnet_torch.quantize.policy import int4_guard
+
+        guard = int4_guard(self.apply_fn, self.params, self.state, self.calib[:2],
+                           group_size=self.args.int4_group_size or None,
+                           rel_threshold=self.args.int4_guard)
+        if guard:
+            print(f"int4 guard: 8-bit weights kept at {sorted(guard)}")
+        return guard
+
+
+def _quantize(name, inputs: _Inputs, args):
+    """One scheme's (params, state, policy): the JAX CLI's bake of it
+    (quantnet/cli/main.py:135-246), then AdaRound and bias correction on a
+    sub-byte tier where asked. `policy` is the optimized scheme's table,
+    else None."""
+    from quantnet_torch.quantize import bf16, dynamic, static, weight_only
+    from quantnet_torch.quantize.common import first_layer_path
+    from quantnet_torch.quantize.policy import quantize_optimized
+
+    params, state, apply_fn = inputs.params, inputs.state, inputs.apply_fn
     pc = not args.per_tensor
+    int4_gs = args.int4_group_size or None
+    if name == "optimized":
+        # The sweep on the first quarter of the calibration batches.
+        return quantize_optimized(
+            params, state, apply_fn, inputs.calib[: max(args.calibration_batches // 4, 1)],
+            importance=args.importance or "sensitivity",
+            low_precision_scheme=args.optimized_low_tier, int4_group_size=int4_gs,
+        )
     if name == "bf16":
-        return bf16.quantize(params, state)
-    if name == "dynamic":
-        return dynamic.quantize(params, state, per_channel=pc)
-    if name == "weight_only":
-        return weight_only.quantize(params, state, per_channel=pc)
-    if name == "weight_only_int4":
-        return weight_only.quantize(params, state, per_channel=pc, bits=4,
-                                    group_size=args.int4_group_size or None)
-    fparams, fstate, act = calibrated()
-    if name == "w4a8":
+        qp, qs = bf16.quantize(params, state)
+    elif name == "dynamic":
+        qp, qs = dynamic.quantize(params, state, per_channel=pc)
+    elif name == "weight_only":
+        qp, qs = weight_only.quantize(params, state, per_channel=pc)
+    elif name == "weight_only_int4":
+        # Per channel whatever --per-tensor says, as the JAX CLI bakes it.
+        qp, qs = weight_only.quantize(params, state, bits=4, group_size=int4_gs,
+                                      layer_policy=inputs.guard or None)
+    elif name == "w4a8":
         # 4-bit weights in the static int8-activation path, group-wise along
-        # K in dense layers (quantnet/cli/main.py:196-204).
-        return static.bake(fparams, fstate, act, skip_first_layer=args.skip_first_layer,
-                           weight_bits=4, weight_group_size=args.int4_group_size or None)
-    return static.bake(
-        fparams, fstate, act, per_channel=pc,
-        skip_first_layer=args.skip_first_layer, pre_add_quant=args.pre_add_quant,
-    )
+        # K in dense layers (quantnet/cli/main.py:196-204). Under
+        # --skip-first-layer the stem is fp32 already: a guard entry for it
+        # would quantize it instead.
+        fparams, fstate, act = inputs.calibrated
+        guard = dict(inputs.guard)
+        if args.skip_first_layer:
+            guard.pop(first_layer_path(fparams), None)
+        qp, qs = static.bake(fparams, fstate, act, skip_first_layer=args.skip_first_layer,
+                             weight_bits=4, weight_group_size=int4_gs, layer_policy=guard or None)
+    else:
+        fparams, fstate, act = inputs.calibrated
+        qp, qs = static.bake(fparams, fstate, act, per_channel=pc,
+                             skip_first_layer=args.skip_first_layer,
+                             pre_add_quant=args.pre_add_quant)
+    if name in SUB_BYTE and args.adaround_steps:
+        from quantnet_torch.quantize import adaround
+
+        qp, qs = adaround.refine(qp, qs, params, state, apply_fn, inputs.calib,
+                                 steps=args.adaround_steps)
+    if name in SUB_BYTE and args.bias_correct:
+        from quantnet_torch.quantize.bias_correct import bias_correct
+
+        qp, qs = bias_correct(qp, qs, params, state, apply_fn, inputs.calib)
+    return qp, qs, None
 
 
 def cmd_quantize(args):
-    from quantnet_torch.quantize import static
-    from quantnet_torch.quantize.fold import fold_model
     from quantnet_torch.train import checkpoint as ckpt
 
     loaded = _load_fp32(args)
@@ -169,23 +244,20 @@ def cmd_quantize(args):
     params, state, meta = loaded
     train, _, _ = _load_data(args)
     apply_fn = _apply_fn(args.model, args.conv1_scale, _torch_pad(meta))
+    if args.equalize:
+        # Data-free range equalization before every scheme.
+        from quantnet_torch.quantize.equalize import cross_layer_equalize
 
-    @functools.lru_cache(maxsize=None)
-    def calibrated():
-        fparams, fstate = fold_model(params, state)
-        act = static.calibrate(
-            apply_fn, fparams, fstate, _calibration_batches(train, args),
-            observer=args.observer, include_output_stats=args.pre_add_quant,
-        )
-        return fparams, fstate, act
-
+        params, state = cross_layer_equalize(params, state)
+        print("applied cross-layer equalization")
+    inputs = _Inputs(params, state, apply_fn, train, args)
     for name in SCHEMES:
         if args.scheme not in ("all", name):
             continue
-        qp, qs = _quantize(name, params, state, calibrated, args)
+        qp, qs, policy = _quantize(name, inputs, args)
         ckpt.save_artifact(
             _artifact_path(args.save_dir, name), {"params": qp, "state": qs},
-            {"model": args.model, "scheme": name, "policy": None},
+            {"model": args.model, "scheme": name, "policy": policy},
         )
         print(f"saved {name} artifact")
 
@@ -374,6 +446,20 @@ def build_parser() -> argparse.ArgumentParser:
                     help="static and w4a8: keep the stem in fp32, handing int8 on")
     sp.add_argument("--pre-add-quant", action="store_true",
                     help="static: quantize residual operands before the add in downsample blocks")
+    sp.add_argument("--importance", default=None, choices=[None, "sensitivity", "static_map"],
+                    help="optimized: the layer-importance source (default sensitivity)")
+    sp.add_argument("--optimized-low-tier", default="weight_only", choices=["weight_only", "int4"],
+                    help="optimized: the precision of the least sensitive layers")
+    sp.add_argument("--adaround-steps", type=int, default=0,
+                    help="learned-rounding steps on the sub-byte tiers (weight_only_int4, w4a8); "
+                         "0 disables")
+    sp.add_argument("--int4-guard", type=float, default=0.0,
+                    help="sub-byte tiers: keep 8-bit weights where a layer's measured int4 damage "
+                         "exceeds this multiple of the median (0 disables)")
+    sp.add_argument("--equalize", action="store_true",
+                    help="cross-layer equalization before quantizing (data-free)")
+    sp.add_argument("--bias-correct", action="store_true",
+                    help="empirical bias correction on the sub-byte tiers, after AdaRound")
     sp.set_defaults(fn=cmd_quantize)
 
     sp = sub.add_parser("evaluate", help="top-1 / top-5 / per-class of the artifacts")

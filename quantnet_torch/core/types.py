@@ -3,7 +3,8 @@
 Plain dataclasses of tensors: PyTorch runs eagerly, so nothing here needs to be
 a pytree. A layer dict holds a `QTensor` under 'w' once quantized, and under
 'aq' either the `DynamicActQuant` marker (dynamic INT8) or an `ActQuant` with
-frozen parameters (static INT8).
+frozen parameters (static INT8). `ProbeGate` marks a layer of the
+sensitivity sweep (quantnet_torch/quantize/policy.py).
 """
 from __future__ import annotations
 
@@ -121,6 +122,30 @@ class ActQuant:
         if self._host is None:
             self._host = (float(self.scale), float(self.zero_point))
         return self._host
+
+
+@dataclass(frozen=True)
+class ProbeGate:
+    """A layer's selector in the sensitivity sweep (quantnet/core/types.py:229-256),
+    kept under the layer's 'probe' key by policy.measure_sensitivity.
+
+    gate:        1.0 (or True) runs the layer's quantized lane, 0.0 its plain
+                 lane. Host data: PyTorch runs eagerly, so the op runs only the
+                 lane the gate picks, the same value the JAX package selects
+                 with `jnp.where(gate > 0.5, y_q, y_fp)` from both lanes.
+    per_channel: the weight quantization's axis choice for the quantized lane.
+    bits:        the quantized lane's weight width (8 or 4).
+    group_size:  group-wise scales along K (dense layers), or None.
+    act_quant:   True quantizes the activations per batch too (the dynamic
+                 INT8 path: the optimized scheme's damage model); False is
+                 weight-only (the int4 guard's damage model).
+    """
+
+    gate: float
+    per_channel: bool = True
+    bits: int = 8
+    group_size: Optional[int] = None
+    act_quant: bool = True
 
 
 def tree_nbytes(tree) -> int:

@@ -11,8 +11,8 @@ quantized model, activation fused into each op's epilogue), under every
 scheme: fp32, bf16, weight-only, dynamic and static INT8. On the static path
 each layer hands its successor int8 in the successor's frozen domain
 (`_chain_plan`), and `capture` records the quantized layers' inputs for
-calibration. The `__specs__` side channel of the JAX package's capture and
-training come with later slices.
+calibration, with each op's spec under `__specs__` when the caller seeds it
+(models.capture_input). Training comes with Queue 1 item 2.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ import torch
 
 from quantnet_torch.core.config import DEFAULT_FLAGS, Flags, resolve_device
 from quantnet_torch.core.types import ActQuant
+from quantnet_torch.models import capture_input
 from quantnet_torch.ops.conv import conv2d
 from quantnet_torch.ops.layers import batchnorm_apply, batchnorm_init, dropout, maxpool2d
 from quantnet_torch.ops.linear import linear
@@ -102,8 +103,7 @@ def _conv_bn_relu(params, state, name, x, flags, capture, out_quant):
     if "bn" in layer:
         x = conv2d(layer, x, flags=flags)
         return torch.relu(batchnorm_apply(layer["bn"], state[name], x))
-    if capture is not None:
-        capture[name] = x
+    capture_input(capture, name, x, ("conv", 1, "SAME", "relu"))
     return conv2d(layer, x, activation="relu", out_quant=out_quant, flags=flags)
 
 
@@ -119,7 +119,8 @@ def apply(
     """Inference forward on NHWC images. Returns (logits, state).
 
     `capture`, when a dict is given, receives each quantized layer's input
-    on the BN-folded path: what static calibration observes.
+    on the BN-folded path: what static calibration observes; and each op's
+    spec under capture["__specs__"] when the caller seeds that dict.
     """
     chain = _chain_plan(params)
     for block in (("conv1", "conv2"), ("conv3", "conv4"), ("conv5", "conv6")):
@@ -132,10 +133,8 @@ def apply(
     if "bn" in fc1:
         x = torch.relu(batchnorm_apply(fc1["bn"], state["fc1"], linear(fc1, x, flags=flags)))
     else:
-        if capture is not None:
-            capture["fc1"] = x
+        capture_input(capture, "fc1", x, ("linear", None, None, "relu"))
         x = linear(fc1, x, activation="relu", out_quant=chain.get("fc1"), flags=flags)
     x = dropout(x, 0.5)
-    if capture is not None:
-        capture["fc2"] = x
+    capture_input(capture, "fc2", x, ("linear", None, None, None))
     return linear(params["fc2"], x, flags=flags), state

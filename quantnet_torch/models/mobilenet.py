@@ -18,8 +18,7 @@ Mirrored from the JAX package, on purpose: `_block_cin` reads the input
 channels of a block's first conv, which for a t=1 block (block0, no expand)
 is the depthwise kernel's I axis, 1. So block0's residual never fires, also
 at widths where torchvision's would (width 0.25: stem and block0 both 8
-wide). ROADMAP Queue 3 records it. Training and the `__specs__` side channel
-of calibration come with later slices.
+wide). ROADMAP Queue 3 records it. Training comes with Queue 1 item 2.
 """
 from __future__ import annotations
 
@@ -31,6 +30,7 @@ import torch
 from quantnet_torch.core.config import DEFAULT_FLAGS, Flags, resolve_device
 from quantnet_torch.core.quantize import dequantize, quantize_affine
 from quantnet_torch.core.types import ActQuant, QTensor
+from quantnet_torch.models import capture_input
 from quantnet_torch.ops.conv import conv2d
 from quantnet_torch.ops.int8_matmul import activation
 from quantnet_torch.ops.layers import avgpool_global, batchnorm_apply, batchnorm_init, dropout
@@ -135,8 +135,9 @@ def _conv_bn_act(layer, state, x, *, stride, padding, act, capture, path, flags,
     if "bn" in layer:
         y = conv2d(layer, x, stride=stride, padding=padding, groups=groups, flags=flags)
         return activation(batchnorm_apply(layer["bn"], state, y), act)
-    if capture is not None:
-        capture[path] = x
+    # A depthwise conv is "dwconv": the replay takes its groups from the
+    # input's channels, so every spec stays a 4-tuple.
+    capture_input(capture, path, x, ("dwconv" if groups > 1 else "conv", stride, padding, act))
     return conv2d(layer, x, stride=stride, padding=padding, activation=act, groups=groups,
                   out_quant=out_quant, flags=flags)
 
@@ -196,7 +197,8 @@ def apply(
     (the stem and the stride-2 depthwise convs) in place of XLA's SAME, which
     pads (0, 1) there: imported torchvision weights need it. `capture`, if
     given, receives every folded layer's input under its path (static
-    calibration).
+    calibration), and each op's spec under capture["__specs__"] when the
+    caller seeds that dict.
     """
     pad2 = ((1, 1), (1, 1)) if torch_pad else "SAME"
     names = _block_names(params)
@@ -248,6 +250,5 @@ def apply(
         act="relu6", capture=capture, path="conv_head", flags=flags,
     )
     x = dropout(avgpool_global(x), 0.2)
-    if capture is not None:
-        capture["fc"] = x
+    capture_input(capture, "fc", x, ("linear", None, None, None))
     return linear(params["fc"], x, flags=flags), state

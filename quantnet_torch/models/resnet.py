@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from quantnet_torch.core.config import DEFAULT_FLAGS, Flags, resolve_device
 from quantnet_torch.core.quantize import dequantize, quantize_affine
 from quantnet_torch.core.types import ActQuant
+from quantnet_torch.models import capture_input
 from quantnet_torch.ops.conv import conv2d
 from quantnet_torch.ops.layers import avgpool_global, batchnorm_apply, batchnorm_init
 from quantnet_torch.ops.linear import linear
@@ -105,8 +106,7 @@ def _conv_bn(layer, state, x, *, stride, padding, relu, capture, path, out_quant
         y = conv2d(layer, x, stride=stride, padding=padding, flags=flags)
         y = batchnorm_apply(layer["bn"], state, y)
         return torch.relu(y) if relu else y
-    if capture is not None:
-        capture[path] = x
+    capture_input(capture, path, x, ("conv", stride, padding, "relu" if relu else None))
     return conv2d(
         layer, x, stride=stride, padding=padding, activation="relu" if relu else None,
         out_quant=out_quant, flags=flags,
@@ -207,7 +207,8 @@ def apply(
     (fold_stem_s2d) takes raw NHWC images, space-to-depthed here on the
     device, or images already in that form (4x the channels). `capture`, if given,
     receives every folded layer's input under its path, and for downsample
-    blocks the pre-add outputs under '<path>:out' (static calibration).
+    blocks the pre-add outputs under '<path>:out' (static calibration); each
+    op's spec under capture["__specs__"] when the caller seeds that dict.
     """
     pad3 = ((1, 1), (1, 1)) if torch_pad else "SAME"
     pad_stem = ((3, 3), (3, 3)) if torch_pad else "SAME"
@@ -294,6 +295,5 @@ def apply(
                 x = quantize_affine(x, boundary_aq.scale, boundary_aq.zero_point)
 
     x = avgpool_global(x)
-    if capture is not None:
-        capture["fc"] = x
+    capture_input(capture, "fc", x, ("linear", None, None, None))
     return linear(params["fc"], x, flags=flags), state

@@ -29,8 +29,14 @@ epilogue. The fp32 / bf16 and weight-only convs run outside Pallas in the JAX
 package too: here they are cuDNN convs in f32 with TF32 off, grouped where
 asked. Grouped convs that are not depthwise, and group-wise quantized conv
 weights, raise, as in the JAX package. Activations: relu and relu6
-(MobileNetV2's clipped relu, `jnp.clip(y, 0, 6)`). The probe / QAT branches
-come with later slices.
+(MobileNetV2's clipped relu, `jnp.clip(y, 0, 6)`).
+
+A float layer that carries a `ProbeGate` under 'probe' (the sensitivity
+sweep, quantize/policy.py) runs the lane its gate picks
+(ops/linear.py::probe_lane) through this same dispatch, as
+quantnet/ops/conv.py:171-195 does: on the card the quantized lane of a conv
+is K1's f32 store, of a depthwise conv K4's. The QAT branch (Queue 1 item 2)
+is not ported yet.
 """
 from __future__ import annotations
 
@@ -40,11 +46,11 @@ import torch
 import torch.nn.functional as F
 
 from quantnet_torch.core.config import DEFAULT_FLAGS, Flags
-from quantnet_torch.core.quantize import dynamic_quantize, quantize_affine
+from quantnet_torch.core.quantize import dynamic_quantize, maybe_requantize, quantize_affine
 from quantnet_torch.core.types import ActQuant, DynamicActQuant, QTensor
 from quantnet_torch.ops.depthwise_conv import depthwise_conv, depthwise_conv_plain
 from quantnet_torch.ops.int8_matmul import K_ALIGN, Epilogue
-from quantnet_torch.ops.linear import float_epilogue, int8_epilogue, int8_matmul
+from quantnet_torch.ops.linear import float_epilogue, int8_epilogue, int8_matmul, probe_lane
 from quantnet_torch.ops.macs import record_conv
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
@@ -189,7 +195,7 @@ def conv2d(
     groups: int = 1,
     flags: Flags = DEFAULT_FLAGS,
 ) -> torch.Tensor:
-    """Apply a conv layer {'w' (HWIO), optional 'b', 'aq', 'wsum', 'gemm'} to NHWC x.
+    """Apply a conv layer {'w' (HWIO), optional 'b', 'aq', 'wsum', 'gemm', 'probe'} to NHWC x.
 
     padding: "SAME" (XLA's, asymmetric at stride 2), "VALID", or explicit
     ((top, bottom), (left, right)), as the ResNet's `torch_pad` passes it.
@@ -198,6 +204,10 @@ def conv2d(
     """
     w = layer["w"]
     b = layer.get("b")
+    if layer.get("probe") is not None and not isinstance(w, QTensor):
+        y = conv2d(probe_lane(layer), x, stride=stride, padding=padding, activation=activation,
+                   groups=groups, flags=flags)
+        return maybe_requantize(y, out_quant)
     kh, kw = w.shape[0], w.shape[1]
     _check_groups(groups, x.shape, w.shape)
     pads = _resolve_pads(padding, x.shape[1], x.shape[2], kh, kw, stride)

@@ -22,7 +22,13 @@ the int8 GEMM kernel's grouped-K mode: one int32 product per group of K
 rows, folded in f32 with each group's zero-point correction and scale inside
 the kernel (quantnet/ops/linear.py:228-253). The fp32 / bf16 and weight-only
 products run outside Pallas in the JAX package too: here they are PyTorch
-products with TF32 off. The probe / QAT branches come with later slices.
+products with TF32 off.
+
+A float layer that carries a `ProbeGate` under 'probe' (the sensitivity
+sweep, quantize/policy.py) runs the lane its gate picks (`probe_lane`): its
+plain self, or its quantized lane through this same dispatch
+(quantnet/ops/linear.py:109-127). The QAT branch (Queue 1 item 2) is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ from quantnet_torch.ops.int8_matmul import (
     int8_gemm_epilogue_plain,
 )
 from quantnet_torch.ops.macs import record_linear
+from quantnet_torch.quantize.common import quantize_weight
 
 
 def relu_flag(act: Optional[str]) -> bool:
@@ -222,6 +229,27 @@ def with_gemm_constants(node):
     return out
 
 
+def probe_lane(layer: dict) -> dict:
+    """The layer a sensitivity probe's gate picks, without its 'probe' key:
+    the float layer itself, or (gate > 0.5) its quantized lane, built as the
+    JAX package builds it (quantnet/ops/conv.py:178-187): the weight through
+    quantize_weight(w, per_channel, bits, group_size), a DynamicActQuant when
+    the probe quantizes activations, and the GEMM constants the kernels read.
+    The gate is host data, so only the picked lane runs; the JAX package
+    computes both and selects, which gives the same values."""
+    probe = layer["probe"]
+    lane = {k: v for k, v in layer.items() if k != "probe"}
+    if not probe.gate > 0.5:
+        return lane
+    lane["w"] = quantize_weight(lane["w"], probe.per_channel, bits=probe.bits,
+                                group_size=probe.group_size)
+    if probe.act_quant:
+        lane["aq"] = DynamicActQuant()
+    if needs_gemm_constants(lane):
+        lane["gemm"] = gemm_constants(lane)
+    return lane
+
+
 def float_epilogue(y: torch.Tensor, b, act, out_quant) -> torch.Tensor:
     """+ b, activation and the int8 handoff after an f32 product."""
     if b is not None:
@@ -237,9 +265,12 @@ def linear(
     out_quant: Optional[ActQuant] = None,
     flags: Flags = DEFAULT_FLAGS,
 ) -> torch.Tensor:
-    """Apply a dense layer {'w', optional 'b', 'aq', 'wsum', 'gemm'} to x[M, K]."""
+    """Apply a dense layer {'w', optional 'b', 'aq', 'wsum', 'gemm', 'probe'} to x[M, K]."""
     w = layer["w"]
     b = layer.get("b")
+    if layer.get("probe") is not None and not isinstance(w, QTensor):
+        y = linear(probe_lane(layer), x, activation=activation, flags=flags)
+        return maybe_requantize(y, out_quant)
     record_linear(x.shape[0], x.shape[1], w.shape[-1])
     if not isinstance(w, QTensor):
         # bf16 params pull f32 activations down to bf16; f32 params leave the

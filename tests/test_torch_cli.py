@@ -25,7 +25,7 @@ import torch
 from quantnet.core import config as jcfg
 from quantnet.models import convnet as jconvnet
 from quantnet.train import checkpoint as jckpt
-from quantnet_torch.cli.main import main
+from quantnet_torch.cli.main import build_parser, main
 from quantnet_torch.core.config import Flags
 from quantnet_torch.data.datasets import load_cifar10
 from quantnet_torch.models import convnet as tconvnet
@@ -140,15 +140,24 @@ def test_unknown_model_and_missing_subset_fail(pipeline):
 
 def test_unported_schemes_and_flags_refused(pipeline, tmp_path, capsys):
     """What only the JAX package produces yet is refused by name: the commands
-    that train or report, quantize's optimized scheme and the accuracy tools'
-    flags, ImageNet data, several cards and the s4 runtime. The artifacts
-    those commands write are not refused: evaluate, bench and serve load
-    them (test_optimized_and_qat_artifacts_load)."""
+    that train or report, ImageNet data, several cards and the s4 runtime.
+    The artifacts those commands write are not refused: evaluate, bench and
+    serve load them (test_optimized_and_qat_artifacts_load). The optimized
+    scheme and the accuracy tools' flags are ported
+    (tests/test_torch_cli_accuracy.py): quantize takes them."""
     base, d, _ = pipeline
-    for argv in (["quantize", "--scheme", "optimized"],
-                 ["quantize", "--equalize"], ["quantize", "--adaround-steps", "4"],
-                 ["quantize", "--bias-correct"], ["quantize", "--int4-guard", "50"],
-                 ["serve", "--data-parallel", "2"], ["bench", "--s4-runtime"], ["train"],
+    parser_args = build_parser().parse_args(
+        ["quantize", "--scheme", "optimized", "--equalize", "--adaround-steps", "4",
+         "--bias-correct", "--int4-guard", "50", "--importance", "static_map",
+         "--optimized-low-tier", "int4"])
+    assert (parser_args.scheme, parser_args.equalize, parser_args.adaround_steps,
+            parser_args.bias_correct, parser_args.int4_guard, parser_args.importance,
+            parser_args.optimized_low_tier) == ("optimized", True, 4, True, 50.0, "static_map", "int4")
+    defaults = build_parser().parse_args(["quantize"])
+    assert (defaults.equalize, defaults.adaround_steps, defaults.bias_correct, defaults.int4_guard,
+            defaults.importance, defaults.optimized_low_tier) == (False, 0, False, 0.0, None,
+                                                                   "weight_only")
+    for argv in (["serve", "--data-parallel", "2"], ["bench", "--s4-runtime"], ["train"],
                  ["qat"], ["experiment"], ["report"], ["scaling"]):
         with pytest.raises(SystemExit) as e:
             main([*argv, *d])
@@ -230,8 +239,11 @@ def test_help_names_what_is_not_ported(capsys):
     with pytest.raises(SystemExit):
         main(["quantize", "--help"])
     text = " ".join(capsys.readouterr().out.split())
-    assert "the optimized scheme" in text and "--int4-guard (ROADMAP Queue 1 item 1)" in text
-    assert "w4a8" in text  # a scheme --scheme takes
+    assert "--dataset imagenet (ROADMAP Queue 1 item 2)" in text and "Queue 1 item 1" not in text
+    assert "w4a8" in text and "optimized" in text  # schemes --scheme takes
+    for flag in ("--equalize", "--adaround-steps", "--bias-correct", "--int4-guard",
+                 "--importance", "--optimized-low-tier"):
+        assert flag in text, flag
 
 
 def test_default_device_is_the_card(tmp_path):
