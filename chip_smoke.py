@@ -25,8 +25,9 @@ one line with its wall time:
                 int32, static int8, dynamic bf16, rounding ties, past the
                 fast division's range; and at its tiling edge cases (torch
                 pads at stride 2, odd H and W, N = 1, C = 8 and 20, wide)
-  5. k1 stores  one forward of each model with every K1 and K4 launch held
-                against its plain version on the same inputs, bit for bit
+  5. k1 stores  one forward of each model with every K1, K3 and K4 launch
+                held against its plain version on the same inputs, bit for
+                bit
   6. fused      K2 bit-equal to its plain version (fc1 / fc2 at bs1024 and
                 bs32, MobileNetV2's fc at bs256; f32 and bf16 x; edge cases)
   7. boundary   K3 bit-equal, both variants, at its test and ResNet-50 shapes
@@ -68,15 +69,35 @@ one line with its wall time:
                 bench -> serve; then quantize all with every accuracy tool ->
                 evaluate the eight artifacts -> serve optimized; a
                 torchvision MobileNetV2 state dict with quantize w4a8
- 16. kernels    one JSON line with an entry per kernel and path (K1 on four
+ 16. train      the convnet trained 2 epochs on the synthetic CIFAR-10 split
+                (bs128, sgd_cosine, augmentation): finite losses, top-1 above
+                chance; ResNet-50 and MobileNetV2 1.0, 10 train-mode steps at
+                224x224 bs32: the loss falls, BN statistics move; the
+                convnet's steps on the card and on the CPU from the same
+                weights, batches and draws agree, per leaf above the max
+                pools, and the same steps at PyTorch's TF32 defaults do not;
+                img/s of each train step
+ 17. qat        QAT of the tracked trained convnet (runs/r3_cifar/saved fp32;
+                and w4a8 by --init-from, its dense layers on K1's grouped-K
+                mode), and a few QAT steps of ResNet-50 and MobileNetV2 at
+                224x224: each baked tree's forward bit-equal to its plain
+                run, every K1 / K3 / K4 launch bit-equal, its logits within
+                the JAX QAT test's bound (the deep trees: a relative L2) of
+                the fake-quant graph it deploys, and two planted bake faults
+                outside it; fp32,
+                static PTQ and QAT top-1; the QAT step's device-time split
+                (torch.profiler); the PTQ-collapse demonstration
+ 18. cli train  python -m quantnet_torch train -> qat -> evaluate in process
+ 19. kernels    one JSON line with an entry per kernel and path (K1 on four
                 paths, K1's grouped-K mode, K2, K3, K4), its numbers, its
                 launches through the serving engine, counted in device traces,
-                and the [accuracy] runs' launches
+                the [accuracy] runs' launches and the baked QAT trees' ones
 Any failed check raises before the last line, which is the only place that
 prints {"ok": true, ...}. Nothing is written outside build/ (gitignored).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -1034,65 +1055,91 @@ def _store_name(epi) -> str:
     return " ".join(parts + ([epi.act] if epi.act else []))
 
 
-def k1_stores_phase(torch, models):
-    """One forward of each model with every K1 launch held against
-    int8_gemm_epilogue_plain, and every K4 launch against
-    depthwise_conv_plain, on the same inputs, bit for bit (compared as
-    integers, so -0 against +0 would count). Returns, per path, the K1 calls
-    by (M, K, N, store) with their count and one call's inputs, and
-    MobileNetV2's K4 calls the same way, for [times]."""
+@contextlib.contextmanager
+def held_launches(torch):
+    """Inside the scope, every launch of K1 (its grouped-K mode included),
+    K3 and K4 held against its plain version on the same inputs, bit for bit
+    (compared as integers, so -0 against +0 would count). Yields the record:
+    per kernel, the calls by shape with their count and one call's inputs
+    (K1: (M, K, N, store) -> [count, a, b, epi]; K4: (shape, stride, store)
+    -> [count, x, w, stride, pads, pad_value, epi]; K3: (shape, dtype) ->
+    [count, *args]), and the largest |kernel - plain|."""
+    from quantnet_torch.models import resnet as resnet_mod
     from quantnet_torch.ops import conv as ops_conv
     from quantnet_torch.ops import linear as ops_linear
     from quantnet_torch.ops.depthwise_conv import depthwise_conv, depthwise_conv_plain
     from quantnet_torch.ops.int8_matmul import int8_gemm_epilogue, int8_gemm_epilogue_plain
+    from quantnet_torch.ops.residual_boundary import residual_boundary, residual_boundary_plain
 
-    t0 = time.perf_counter()
-    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.int8: torch.int8}
-    calls, dw_calls, errs = {}, {}, {}
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.int8: torch.int8,
+            torch.int32: torch.int32}
+    rec = {"calls": {"int8_gemm": {}, "depthwise_conv": {}, "residual_boundary": {}},
+           "err": {"int8_gemm": 0.0, "depthwise_conv": 0.0, "residual_boundary": 0.0}}
 
-    def checked(a, b, epi):
-        got = int8_gemm_epilogue(a, b, epi)
-        ref = int8_gemm_epilogue_plain(a, b, epi)
-        key = (a.shape[0], a.shape[1], b.shape[0], _store_name(epi))
-        bad = int((got.contiguous().view(bits[epi.out]) != ref.view(bits[epi.out])).sum())
+    def held(name, key, got, ref, args):
+        bad = int((got.contiguous().view(bits[got.dtype]) != ref.contiguous().view(bits[ref.dtype])).sum())
         check(got.dtype == ref.dtype and bad == 0,
-              f"int8_gemm_epilogue {key}: {bad} of {ref.numel()} differ from the plain version")
-        calls.setdefault(key, [0, a, b, epi])[0] += 1
-        errs["k1"] = max(errs["k1"], (got.float() - ref.float()).abs().max().item())
+              f"{name} {key}: {bad} of {ref.numel()} differ from the plain version")
+        rec["calls"][name].setdefault(key, [0, *args])[0] += 1
+        rec["err"][name] = max(rec["err"][name], (got.float() - ref.float()).abs().max().item())
         return got
 
-    def dw_checked(x, w, stride, pads, pad_value, epi):
-        got = depthwise_conv(x, w, stride, pads, pad_value, epi)
-        ref = depthwise_conv_plain(x, w, stride, pads, pad_value, epi)
-        key = (tuple(x.shape), stride, _store_name(epi))
-        bad = int((got.view(bits[epi.out]) != ref.view(bits[epi.out])).sum())
-        check(got.dtype == ref.dtype and bad == 0,
-              f"depthwise_conv {key}: {bad} of {ref.numel()} differ from the plain version")
-        dw_calls.setdefault(key, [0, x, w, stride, pads, pad_value, epi])[0] += 1
-        errs["k4"] = max(errs["k4"], (got.float() - ref.float()).abs().max().item())
-        return got
+    def k1(a, b, epi):
+        return held("int8_gemm", (a.shape[0], a.shape[1], b.shape[0], _store_name(epi)),
+                    int8_gemm_epilogue(a, b, epi), int8_gemm_epilogue_plain(a, b, epi), (a, b, epi))
 
-    found, dw_found, errors = {}, {}, {}
-    ops_linear.int8_gemm_epilogue = checked
-    ops_conv.depthwise_conv = dw_checked
+    def k4(x, w, stride, pads, pad_value, epi):
+        args = (x, w, stride, pads, pad_value, epi)
+        return held("depthwise_conv", (tuple(x.shape), stride, _store_name(epi)),
+                    depthwise_conv(*args), depthwise_conv_plain(*args), args)
+
+    def k3(*args):
+        return held("residual_boundary", (tuple(args[0].shape), str(args[1].dtype)),
+                    residual_boundary(*args), residual_boundary_plain(*args), args)
+
+    ops_linear.int8_gemm_epilogue, ops_conv.depthwise_conv, resnet_mod.residual_boundary = k1, k4, k3
     try:
-        for path, m in models.items():
-            calls, dw_calls, errs = {}, {}, {"k1": 0.0, "k4": 0.0}
-            m["apply"](m["q"], m["qs"], m["x"])
-            torch.cuda.synchronize()
-            found[path], errors[path] = calls, errs
-            if dw_calls:
-                dw_found[path] = dw_calls
+        yield rec
+        torch.cuda.synchronize()
     finally:
         ops_linear.int8_gemm_epilogue = int8_gemm_epilogue
         ops_conv.depthwise_conv = depthwise_conv
+        resnet_mod.residual_boundary = residual_boundary
+
+
+def held_counts(rec) -> dict:
+    """A held_launches record's launches by kernel, counted as the wrappers
+    count them: every launch, and K1's grouped-K ones apart."""
+    calls = rec["calls"]
+    counts = {name: sum(c[0] for c in v.values()) for name, v in calls.items()}
+    counts["int8_gemm_grouped"] = sum(c[0] for c in calls["int8_gemm"].values() if getattr(c[3], "group", None) is not None)
+    return counts
+
+
+def k1_stores_phase(torch, models):
+    """One forward of each model with every K1, K3 and K4 launch held
+    against its plain version (held_launches). Returns, per path, the K1
+    calls by (M, K, N, store) with their count and one call's inputs, and
+    MobileNetV2's K4 calls the same way, for [times]; and the largest
+    |kernel - plain| of K1 and K4."""
+    t0 = time.perf_counter()
+    found, dw_found, errors, k3 = {}, {}, {}, 0
+    for path, m in models.items():
+        with held_launches(torch) as rec:
+            m["apply"](m["q"], m["qs"], m["x"])
+        found[path] = rec["calls"]["int8_gemm"]
+        if rec["calls"]["depthwise_conv"]:
+            dw_found[path] = rec["calls"]["depthwise_conv"]
+        errors[path] = {"k1": rec["err"]["int8_gemm"], "k4": rec["err"]["depthwise_conv"]}
+        k3 += held_counts(rec)["residual_boundary"]
     per_path = "; ".join(
         f"{p} {sum(c[0] for c in v.values())} launches at {len(v)} shapes "
         f"({', '.join(sorted({k[3] for k in v}))})" for p, v in found.items())
     dw = "; ".join(f"{p} {sum(c[0] for c in v.values())} launches "
                    f"({', '.join(sorted({k[2] for k in v}))})" for p, v in dw_found.items())
     phase("k1 stores", t0, f"every K1 launch of a forward bit-equal to int8_gemm_epilogue_plain: "
-          f"{per_path}; every K4 launch bit-equal to depthwise_conv_plain: {dw}")
+          f"{per_path}; every K4 launch bit-equal to depthwise_conv_plain: {dw}; every K3 launch "
+          f"bit-equal to residual_boundary_plain: {k3}")
     return found, dw_found, errors
 
 
@@ -1904,7 +1951,6 @@ def cli_phase(torch):
 
 def bench_torch_phase():
     """bench_torch.py's measurement, run in this process; its lines printed."""
-    import contextlib
     import io
 
     import bench_torch
@@ -1921,10 +1967,653 @@ def bench_torch_phase():
     print(lines[-1], flush=True)
 
 
+# [train]: the SimpleConvNet at full width on the synthetic CIFAR-10 split
+# (the CLI's defaults: 12800 / 2560 images, bs128, sgd_cosine at lr 0.1)
+# for two epochs with augmentation; ResNet-50 and MobileNetV2 1.0 at 224x224,
+# bs32, ten train-mode steps on one batch; the convnet's first steps on the
+# card and through the port on the CPU from the same weights, batches and
+# random draws (a CPU generator), bs32.
+TRAIN_SIZES = (12800, 2560)
+TRAIN_BATCH = 128
+# Above chance: 0.1 + 5 standard deviations of chance's top-1 on 2560 images
+# (an H100 measured 0.2152 after the second epoch; the JAX package's run,
+# runs/r3_cifar, 0.2748 and 0.2398 after its first two of 20).
+TRAIN_TOP1_MIN = 0.13
+BIG_BATCH = 32
+BIG_IMAGE = 224
+BIG_STEPS = 10
+TWIN_BATCH = 32
+TWIN_STEPS = 10
+# A step on the card and the same step on the CPU differ by the f32
+# products' summation orders alone (TF32 off in forward and backward). Held:
+# the relative loss difference, and per leaf the median relative difference
+# of its gradient, the worst leaf and step, over the leaves that the
+# backward reaches before a max pool's gradient crosses channels: conv6 and
+# the dense layers. A pool window whose two largest entries the f32 sums
+# order differently on the two devices sends its gradient to another
+# entry; that moves a few of conv6's output channels, and the next conv's
+# data gradient spreads it over every weight below (medians of 3e-3-1e-2
+# there, printed beside). The same steps at PyTorch's TF32 defaults (cuDNN's
+# backward convs in TF32) run as a control that must exceed the gradient
+# bound. The batches are seeded normal images: flat regions of the
+# synthetic split tie many pool windows.
+TWIN_LOSS_REL_MAX = 1e-4
+TWIN_GRAD_REL_MAX = 1e-4
+TWIN_HELD = ("conv6", "fc1", "fc2")
+# [qat]: the tracked trained artifacts (runs/r3_cifar/saved), calibrated on
+# the CLI's 16 batches of 128; the JAX QAT test's bound of the baked logits
+# against the fake-quant graph's (tests/test_qat.py:86-126). ResNet-50 and
+# MobileNetV2 start from their seeded init with BN statistics measured on the
+# batch (BN_RECALIBRATION train-mode forwards: at init's statistics the folded
+# ResNet-50's activations grow by orders of magnitude a stage). The graph as
+# it trains adds each residual identity unquantized, where the baked tree
+# adds it as the int8 block input dequantized (in the JAX package too:
+# quantnet/models/resnet.py:329-339, mobilenet.py:236-242); so every baked
+# tree is held against the fake-quant graph with its identities
+# fake-quantized as the bake reads them (Flags(fake_quant_identity)), and
+# planted bake faults must break the same bound. Between the two graphs of
+# a deep tree, an activation that the f32 sums put on the other side of a
+# rounding boundary moves by a whole step and so do its consumers: the deep
+# trees are held to a relative L2 under QAT_DEEP_REL_L2, the JAX test's
+# elementwise bound printed beside.
+SAVED = "runs/r3_cifar/saved"
+QAT_CALIBRATION_BATCHES = 16
+QAT_RTOL, QAT_ATOL = 0.05, 0.15
+QAT_DEEP_REL_L2 = 0.12
+BIG_QAT_STEPS = 3
+BN_RECALIBRATION = 30
+
+
+def _sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _tree_max_diff(torch, a, b) -> float:
+    from quantnet_torch.train.trainer import tensor_leaves
+
+    la, lb = tensor_leaves(a), tensor_leaves(b)
+    scale = max(t.abs().max().item() for t in lb)
+    return max((x.detach().cpu() - y.detach().cpu()).abs().max().item() for x, y in zip(la, lb)) / scale
+
+
+def _steps(torch, dev, apply_fn, params, state, batches, *, generator, augment=True, lr=0.1,
+           steps_per_epoch=100):
+    """Train steps of the port's trainer on the given (images, labels)
+    batches: (losses, params, state), the trees detached copies."""
+    from quantnet_torch.core.config import TrainConfig
+    from quantnet_torch.train.trainer import Optimizer, clone_tree, tensor_leaves, train_step
+
+    params = clone_tree(params, dev, requires_grad=True)
+    state = clone_tree(state, dev)
+    opt = Optimizer(TrainConfig(epochs=1, lr=lr), steps_per_epoch)
+    leaves = tensor_leaves(params)
+    opt_state = opt.init(leaves)
+    losses = []
+    for x, y in batches:
+        state, loss, _ = train_step(apply_fn, opt, params, state, opt_state, leaves, generator,
+                                    x.to(dev), y.to(dev), augment=augment)
+        losses.append(loss)
+    _sync(torch, dev)
+    return [float(v) for v in losses], clone_tree(params), clone_tree(state)
+
+
+def _img_per_s(torch, dev, fn, images: int, iters: int = 5) -> float:
+    fn()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    _sync(torch, dev)
+    return images * iters / (time.perf_counter() - t0)
+
+
+def train_phase(torch, dev, card):
+    """[train]: the convnet trained two epochs on the synthetic split;
+    ResNet-50 and MobileNetV2 1.0 ten train-mode steps each at 224x224; the
+    convnet's steps on the card against the same steps on the CPU."""
+    from quantnet_torch.core.config import TrainConfig
+    from quantnet_torch.data.datasets import load_cifar10
+    from quantnet_torch.models import convnet, mobilenet, resnet
+    from quantnet_torch.train import trainer as tr
+
+    t0 = time.perf_counter()
+    train, test = load_cifar10("build/no-data", synthetic_train_size=TRAIN_SIZES[0],
+                               synthetic_test_size=TRAIN_SIZES[1])
+    params, state = convnet.init(torch.Generator().manual_seed(SEED), device=dev)
+    trainer = tr.Trainer(convnet.apply, params, state, TrainConfig(epochs=2, batch_size=TRAIN_BATCH),
+                         train, test, log=None, device=dev)
+    trainer.train()
+    hist = trainer.history
+    check(all(math.isfinite(h["train_loss"]) and math.isfinite(h["test_loss"]) for h in hist),
+          f"[train] convnet: non-finite losses {hist}")
+    check(trainer.best_accuracy > TRAIN_TOP1_MIN,
+          f"[train] convnet: test top-1 {trainer.best_accuracy} near chance")
+    x = torch.from_numpy(train.images[:TRAIN_BATCH]).to(dev)
+    y = torch.from_numpy(train.labels[:TRAIN_BATCH]).to(dev, torch.int64)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    conv_ips = _img_per_s(torch, dev, lambda: trainer._step(gen, x, y), TRAIN_BATCH, iters=20)
+    phase("train", t0, f"convnet bs{TRAIN_BATCH} on {train.name} ({len(train)} / {len(test)}), 2 epochs "
+          f"sgd_cosine with augmentation: train loss {hist[0]['train_loss']:.4f} -> "
+          f"{hist[1]['train_loss']:.4f}, test top-1 {hist[0]['test_acc']:.4f} -> {hist[1]['test_acc']:.4f}; "
+          f"epochs {hist[0]['seconds']:.2f} s and {hist[1]['seconds']:.2f} s (evaluation included); "
+          f"train step {conv_ips:.1f} img/s; {card}")
+
+    big = {}
+    for name, mod, init in (
+        ("resnet50", resnet, lambda g: resnet.init(g, depth=50, device=dev)),
+        ("mobilenetv2", mobilenet, lambda g: mobilenet.init(g, device=dev)),
+    ):
+        t1 = time.perf_counter()
+        p, s = init(torch.Generator().manual_seed(SEED))
+        g = torch.Generator().manual_seed(SEED + 3)
+        xb = torch.randn((BIG_BATCH, BIG_IMAGE, BIG_IMAGE, 3), generator=g).to(dev)
+        yb = torch.randint(0, 1000, (BIG_BATCH,), generator=g).to(dev)
+        losses, p2, s2 = _steps(torch, dev, mod.apply, p, s, [(xb, yb)] * BIG_STEPS,
+                                generator=torch.Generator(device=dev).manual_seed(SEED), augment=False,
+                                lr=0.05, steps_per_epoch=BIG_STEPS)
+        moved = _tree_max_diff(torch, s2, s)
+        check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+              f"[train] {name}: losses {losses} do not fall")
+        check(moved > 0, f"[train] {name}: BN running statistics did not move")
+        opt_params = tr.clone_tree(p, dev, requires_grad=True)
+        opt = tr.Optimizer(TrainConfig(epochs=1, lr=0.05), BIG_STEPS)
+        leaves = tr.tensor_leaves(opt_params)
+        opt_state = opt.init(leaves)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        ips = _img_per_s(torch, dev, lambda: tr.train_step(mod.apply, opt, opt_params, s, opt_state,
+                                                              leaves, gen, xb, yb, augment=False),
+                         BIG_BATCH)
+        big[name] = ips
+        phase(f"train {name}", t1, f"bs{BIG_BATCH} {BIG_IMAGE}x{BIG_IMAGE}, {BIG_STEPS} train-mode steps on one batch: "
+              f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; BN running statistics moved (max {moved:.3g} "
+              f"of the largest); train step {ips:.1f} img/s; {card}")
+
+    # The convnet's steps on the card and on the CPU. Training from scratch
+    # at lr 0.1 is chaotic (a last-place difference grows step by step, on
+    # the CPU alone too), so each of the CPU run's ten steps is repeated on
+    # the card from the CPU's state before it (weights, BN statistics,
+    # momentum, the generator's state): the same weights, batches and draws.
+    t2 = time.perf_counter()
+    params, state = convnet.init(torch.Generator().manual_seed(SEED), device="cpu")
+    g = torch.Generator().manual_seed(SEED + 4)
+    batches = [(torch.randn((TWIN_BATCH, 32, 32, 3), generator=g), torch.randint(0, 10, (TWIN_BATCH,), generator=g))
+               for _ in range(TWIN_STEPS)]
+    twin = _twin_steps(torch, dev, tr, convnet.apply, params, state, batches)
+    with _tf32_default(torch, tr):
+        control = _twin_steps(torch, dev, tr, convnet.apply, params, state, batches)
+    readings = (f"losses {twin['loss']:.3g} (bound {TWIN_LOSS_REL_MAX}), gradients' median at the worst held "
+                f"leaf {twin['grad']:.3g} ({twin['leaf']}; bound {TWIN_GRAD_REL_MAX}); at PyTorch's TF32 "
+                f"defaults {control['loss']:.3g}, {control['grad']:.3g} ({control['leaf']})")
+    check(twin["loss"] < TWIN_LOSS_REL_MAX and twin["grad"] < TWIN_GRAD_REL_MAX,
+          f"[train twin] card against CPU: {readings}")
+    check(control["grad"] > TWIN_GRAD_REL_MAX,
+          f"[train twin] the control with cuDNN's TF32 in the backward passes the bound: {readings}")
+    phase("train twin", t2, f"convnet bs{TWIN_BATCH}, {TWIN_STEPS} steps on seeded normal images with "
+          f"augmentation and dropout drawn from a CPU generator, each from the CPU run's state before it: "
+          f"card against CPU, losses within {twin['loss']:.3g} relative (bound {TWIN_LOSS_REL_MAX}); "
+          f"gradients, the median relative difference per leaf, held over {', '.join(TWIN_HELD)}: worst "
+          f"{twin['grad']:.3g} at {twin['leaf']} (bound {TWIN_GRAD_REL_MAX}; the largest difference "
+          f"{twin['grad_max']:.3g} of the largest gradient), below the max pools worst {twin['below']:.3g} "
+          f"at {twin['below_leaf']}; weights after each step within {twin['param']:.3g} of the largest; "
+          f"control at PyTorch's TF32 defaults (cuDNN on, cuBLAS off), which must exceed the bound: loss "
+          f"{control['loss']:.3g}, held {control['grad']:.3g} at {control['leaf']} (largest "
+          f"{control['grad_max']:.3g}), below the max pools {control['below']:.3g} at "
+          f"{control['below_leaf']}, weights {control['param']:.3g}")
+
+
+def _leaf_names(torch, tree, prefix="") -> list:
+    """The paths of a tree's tensors, in tensor_leaves order."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.extend(_leaf_names(torch, v, f"{prefix}{k}."))
+        elif isinstance(v, torch.Tensor):
+            out.append(prefix + k)
+    return out
+
+
+def _twin_steps(torch, dev, tr, apply_fn, params, state, batches) -> dict:
+    """The largest differences, card against CPU, over train steps on
+    `batches`, each run on the card from the CPU run's state before it: of
+    the loss (relative); of the gradients that the step hands the optimizer,
+    per leaf the median of the relative difference, the worst of the
+    TWIN_HELD layers' leaves ("grad") and of the others ("below"), with the
+    largest difference of a held leaf to its largest gradient beside; of the
+    weights after the step (to the largest). A bias before a train-mode BN
+    is left out: the BN subtracts the batch mean, so its gradient is
+    rounding noise."""
+    from quantnet_torch.core.config import TrainConfig
+
+    class Recording(tr.Optimizer):
+        def update(self, leaves, grads, state):
+            self.grads = [g.detach().to("cpu", copy=True) for g in grads]
+            super().update(leaves, grads, state)
+
+    names = _leaf_names(torch, params)
+    compared = [i for i, n in enumerate(names)
+                if not (n.endswith(".b") and isinstance(params[n.split(".")[0]].get("bn"), dict))]
+    opt = Recording(TrainConfig(epochs=1, lr=0.1), len(batches))
+    gopt = Recording(TrainConfig(epochs=1, lr=0.1), len(batches))
+    gen = torch.Generator().manual_seed(SEED + 4)
+    p = tr.clone_tree(params, "cpu", requires_grad=True)
+    st = tr.clone_tree(state)
+    leaves = tr.tensor_leaves(p)
+    opt_state = opt.init(leaves)
+    worst = {"loss": 0.0, "grad": 0.0, "leaf": None, "below": 0.0, "below_leaf": None, "grad_max": 0.0,
+             "param": 0.0}
+    for x, y in batches:
+        before = (tr.clone_tree(p), tr.clone_tree(st), opt_state["count"],
+                  [t.clone() for t in opt_state["trace"]], gen.get_state())
+        st, loss, _ = tr.train_step(apply_fn, opt, p, st, opt_state, leaves, gen, x, y)
+        gp = tr.clone_tree(before[0], dev, requires_grad=True)
+        gstate = {"count": before[2], "trace": [t.to(dev) for t in before[3]]}
+        ggen = torch.Generator()
+        ggen.set_state(before[4])
+        _, gloss, _ = tr.train_step(apply_fn, gopt, gp, tr.clone_tree(before[1], dev), gstate,
+                                    tr.tensor_leaves(gp), ggen, x.to(dev), y.to(dev))
+        torch.cuda.synchronize()
+        worst["loss"] = max(worst["loss"], abs(float(gloss) - float(loss)) / abs(float(loss)))
+        for i in compared:
+            g, gg = opt.grads[i], gopt.grads[i]
+            rel = ((gg - g).abs() / (g.abs() + 1e-3 * g.abs().max())).median().item()
+            held = names[i].split(".")[0] in TWIN_HELD
+            key = "grad" if held else "below"
+            if rel >= worst[key]:
+                worst[key], worst["leaf" if held else "below_leaf"] = rel, names[i]
+            if held:
+                worst["grad_max"] = max(worst["grad_max"], ((gg - g).abs().max() / g.abs().max()).item())
+        worst["param"] = max(worst["param"], _tree_max_diff(torch, tr.clone_tree(gp, "cpu"), p))
+    return worst
+
+
+def _tf32_default(torch, tr):
+    """A scope in which the train step leaves TF32 at PyTorch's defaults, on
+    for cuDNN and off for cuBLAS: the step's no_tf32() replaced by one that
+    sets those, so the backward convs run in TF32 (what the step's own
+    scope is there to prevent) while the forward's convs and matmuls keep their own
+    f32 scopes."""
+
+    @contextlib.contextmanager
+    def defaults():
+        cudnn, cublas = torch.backends.cudnn, torch.backends.cuda.matmul
+        before = cudnn.allow_tf32, cublas.allow_tf32
+        cudnn.allow_tf32, cublas.allow_tf32 = True, False
+        try:
+            yield
+        finally:
+            cudnn.allow_tf32, cublas.allow_tf32 = before
+
+    @contextlib.contextmanager
+    def scope():
+        saved = tr.no_tf32
+        tr.no_tf32 = defaults
+        try:
+            yield
+        finally:
+            tr.no_tf32 = saved
+
+    return scope()
+
+
+def _within_qat_bound(got, ref) -> bool:
+    return bool(((got - ref).abs() <= QAT_ATOL + QAT_RTOL * ref.abs()).all())
+
+
+def _rel_l2(got, ref) -> float:
+    return ((got - ref).norm() / ref.norm()).item()
+
+
+def _planted_faults(torch, apply_fn, baked, state, x, ref) -> dict:
+    """Bake faults planted in every quantized layer of a copy of the baked
+    tree: the input quantized one zero point off while the GEMM constants
+    keep the baked zero-point correction ("stale zero point"), and the
+    weights' per-channel scales in reverse channel order, the GEMM constants
+    built from them ("reversed scales"). -> {fault: (whether it stays within
+    the QAT bound of `ref`, its max |diff|, its relative L2)}."""
+    import dataclasses
+
+    from quantnet_torch.core.types import ActQuant
+    from quantnet_torch.ops.linear import gemm_constants
+    from quantnet_torch.quantize.common import walk_layers
+
+    def stale(path, layer):
+        aq = layer.get("aq")
+        if not isinstance(aq, ActQuant) or "gemm" not in layer:
+            return layer
+        return {**layer, "aq": ActQuant(scale=aq.scale, zero_point=aq.zero_point + 1)}
+
+    def reversed_scales(path, layer):
+        if "gemm" not in layer:
+            return layer
+        out = {**layer, "w": dataclasses.replace(layer["w"], scale=layer["w"].scale.flip(-1))}
+        return {**out, "gemm": gemm_constants(out)}
+
+    out = {}
+    for fault, fn in (("stale zero point", stale), ("reversed scales", reversed_scales)):
+        logits, _ = apply_fn(walk_layers(baked, fn), state, x)
+        out[fault] = (_within_qat_bound(logits, ref), (logits - ref).abs().max().item(), _rel_l2(logits, ref))
+    return out
+
+
+def _baked_checks(torch, name, apply_fn, baked, fq_tree, state, x, want, deep=False) -> dict:
+    """A baked QAT tree on the card: one forward with every count set to 0
+    just before it (its launches, held to `want`), bit-equal to its plain
+    run; every K1, K3 and K4 launch of another forward bit-equal to its
+    plain version; its logits against the fake-quant graph that the bake
+    deploys (Flags(fake_quant_identity): the residual identities
+    fake-quantized as the baked tree reads them), within the JAX QAT test's
+    bound (`deep`: a relative L2 under QAT_DEEP_REL_L2), which every planted
+    bake fault must break. Returns the launches, max |baked - that graph|
+    and the relative L2, whether the JAX test's bound holds, the relative L2
+    to the graph as it trained (the identities unquantized), and the planted
+    faults' readings."""
+    from quantnet_torch.core.config import Flags
+
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    logits, _ = apply_fn(baked, state, x)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    check(bool(torch.isfinite(logits).all()), f"[{name}] non-finite logits")
+    check(all(launches[k] == v for k, v in want.items()),
+          f"[{name}] launches {launches}, expected {want}")
+    plain, _ = apply_fn(baked, state, x, flags=Flags(plain=True))
+    check(torch.equal(logits.view(torch.int32), plain.view(torch.int32)),
+          f"[{name}] baked forward vs plain versions: max |diff| {(logits - plain).abs().max().item()}")
+    with held_launches(torch) as rec:
+        apply_fn(baked, state, x)
+    held = held_counts(rec)
+    check(all(held[k] == v for k, v in want.items() if v), f"[{name}] held launches {held}, expected {want}")
+    ref, _ = apply_fn(fq_tree, state, x, flags=Flags(fake_quant_identity=True))
+    trained, _ = apply_fn(fq_tree, state, x)
+    out = {"launches": launches, "err": (logits - ref).abs().max().item(), "rel": _rel_l2(logits, ref),
+           "jax_bound": _within_qat_bound(logits, ref), "trained_rel": _rel_l2(logits, trained),
+           "faults": _planted_faults(torch, apply_fn, baked, state, x, ref)}
+    bound = f"relative L2 {QAT_DEEP_REL_L2}" if deep else f"rtol {QAT_RTOL}, atol {QAT_ATOL}"
+    check(out["rel"] < QAT_DEEP_REL_L2 if deep else out["jax_bound"],
+          f"[{name}] baked logits vs the fake-quant graph's: max |diff| {out['err']}, relative L2 "
+          f"{out['rel']} (max|logit| {ref.abs().max().item()}; bound {bound})")
+    check(all(f[2] >= QAT_DEEP_REL_L2 if deep else not f[0] for f in out["faults"].values()),
+          f"[{name}] a planted bake fault within the bound ({bound}): {out['faults']}")
+    return out
+
+
+def _fault_line(out) -> str:
+    return ", ".join(f"{k}: max |diff| {v[1]:.4f}, relative L2 {v[2]:.4f}" for k, v in out["faults"].items())
+
+
+def _qat_split(torch, prof) -> dict:
+    """Device ms of a QAT step's trace by part: the fake quantizers (their
+    forward ranges and their clip's backward), the convs and matmuls
+    (forward and backward), the optimizer (its range), the rest."""
+    split = {"fake quant": 0.0, "convs": 0.0, "optimizer": 0.0, "other": 0.0}
+    conv_names = ("convolution", "Convolution", "aten::mm", "aten::addmm", "aten::matmul", "MmBackward",
+                  "AddmmBackward")
+
+    def category(e):
+        chain = []
+        while e is not None:
+            chain.append(e.name)
+            e = e.cpu_parent
+        if any(n == "fake_quant" or "ClipBackward" in n for n in chain):
+            return "fake quant"
+        if any(n == "optimizer" for n in chain):
+            return "optimizer"
+        if any(c in n for n in chain for c in conv_names):
+            return "convs"
+        return "other"
+
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.kernels:
+            split[category(e)] += sum(k.duration for k in e.kernels) / 1e3
+    return split
+
+
+def _profiled_qat_steps(torch, dev, apply_fn, qp, qs, x, y, steps=5):
+    """A few QAT train steps under torch.profiler, the fake quantizers and
+    the optimizer in named ranges -> ms per step by part."""
+    from quantnet_torch.core.config import TrainConfig
+    from quantnet_torch.ops import conv as ops_conv
+    from quantnet_torch.ops import linear as ops_linear
+    from quantnet_torch.train import trainer as tr
+
+    def ranged(fn, label):
+        def wrapped(*a, **k):
+            with torch.profiler.record_function(label):
+                return fn(*a, **k)
+        return wrapped
+
+    saved = [(m, n, getattr(m, n)) for m in (ops_conv, ops_linear)
+             for n in ("fake_quant_act_ste", "fake_quant_weight_ste")]
+    saved.append((tr.Optimizer, "update", tr.Optimizer.update))
+    for m, n, f in saved:
+        setattr(m, n, ranged(f, "optimizer" if n == "update" else "fake_quant"))
+    try:
+        params = tr.clone_tree(qp, dev, requires_grad=True)
+        opt = tr.Optimizer(TrainConfig(epochs=1, lr=0.01, grad_clip_norm=1.0), steps)
+        leaves = tr.tensor_leaves(params)
+        opt_state = opt.init(leaves)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        step = lambda: tr.train_step(apply_fn, opt, params, qs, opt_state, leaves, gen, x, y)  # noqa: E731
+        step()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+    return {k: v / steps for k, v in _qat_split(torch, prof).items()}
+
+
+def _load(torch, dev, name):
+    import pathlib
+
+    from quantnet_torch.train import checkpoint as ckpt
+
+    path = pathlib.Path(__file__).resolve().parent / SAVED / name
+    check(path.with_suffix(".json").exists(), f"[qat] {path}.json is missing")
+    tree, _ = ckpt.load_artifact(str(path), device=dev)
+    return tree["params"], tree["state"]
+
+
+def qat_phase(torch, dev, card):
+    """[qat]: QAT from the tracked trained convnet (8-bit, and W4A8 from its
+    AdaRound-refined w4a8 artifact), and a few QAT steps of ResNet-50 and
+    MobileNetV2 1.0 at 224x224; each baked tree held on the card; the QAT
+    step's device-time split; the PTQ-collapse demonstration."""
+    from quantnet_torch.core.config import TrainConfig
+    from quantnet_torch.data.datasets import load_cifar10
+    from quantnet_torch.evaluation.evaluator import Evaluator
+    from quantnet_torch.models import convnet, mobilenet, resnet
+    from quantnet_torch.quantize import qat, static
+    from quantnet_torch.train.trainer import Optimizer, Trainer, clone_tree, tensor_leaves, train_step
+
+    t0 = time.perf_counter()
+    train, test = load_cifar10("build/no-data", synthetic_train_size=TRAIN_SIZES[0],
+                               synthetic_test_size=TRAIN_SIZES[1])
+    calib = [torch.from_numpy(x).to(dev) for x, _ in
+             list(train.batches(TRAIN_BATCH, drop_remainder=True))[:QAT_CALIBRATION_BATCHES]]
+    ev = Evaluator(convnet.apply, test, batch_size=512, device=dev)
+    params, state = _load(torch, dev, "fp32")
+    top1 = {"fp32": ev.evaluate(params, state)["top1"]}
+    sp, ss = static.quantize(params, state, convnet.apply, calib)
+    top1["static"] = ev.evaluate(sp, ss)["top1"]
+    xe = torch.from_numpy(test.images[:TRAIN_BATCH]).to(dev)
+    cfg = TrainConfig(epochs=1, batch_size=TRAIN_BATCH, lr=0.01, grad_clip_norm=1.0)
+    qp, qs = qat.prepare(params, state, convnet.apply, calib)
+    trainer = Trainer(convnet.apply, qp, qs, cfg, train, test, log=None, device=dev)
+    t1 = time.perf_counter()
+    qp, qs = trainer.train()
+    qat_s = time.perf_counter() - t1
+    baked = qat.bake(qp)
+    top1["qat"] = ev.evaluate(baked, qs)["top1"]
+    held = {"convnet": _baked_checks(torch, "qat convnet", convnet.apply, baked, qp, qs, xe,
+                                     {"int8_gemm": 8, "int8_gemm_grouped": 0, "fused_dynamic_gemm": 0})}
+    xt = torch.from_numpy(train.images[:TRAIN_BATCH]).to(dev)
+    yt = torch.from_numpy(train.labels[:TRAIN_BATCH]).to(dev, torch.int64)
+    split = _profiled_qat_steps(torch, dev, convnet.apply, qp, qs, xt, yt)
+    qat_ips = _img_per_s(torch, dev, lambda: trainer._step(
+        torch.Generator(device=dev).manual_seed(SEED), xt, yt), TRAIN_BATCH, iters=20)
+    phase("qat", t0, f"the tracked convnet ({SAVED}/fp32) on {test.name}: top-1 fp32 {top1['fp32']:.4f}, "
+          f"static PTQ {top1['static']:.4f}, QAT (1 epoch, clip 1.0, {qat_s:.2f} s; fake-quant graph "
+          f"{trainer.best_accuracy:.4f}) {top1['qat']:.4f}; baked forward bit-equal to its plain run, "
+          f"launches {held['convnet']['launches']}, every K1 launch bit-equal, max |baked - fake quant| "
+          f"{held['convnet']['err']:.4f} (bound rtol {QAT_RTOL}, atol {QAT_ATOL}); planted bake faults "
+          f"({_fault_line(held['convnet'])}); QAT step bs{TRAIN_BATCH} {qat_ips:.1f} img/s, device ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items()) + f"; {card}")
+
+    t2 = time.perf_counter()
+    wp, ws = _load(torch, dev, "w4a8")
+    wq, wqs = qat.prepare(qat.dequantize_tree(wp), ws, convnet.apply, calib, weight_bits=4,
+                          weight_group_size=W4A8_GROUP, fold=False)
+    wtrainer = Trainer(convnet.apply, wq, wqs, cfg, train, test, log=None, device=dev)
+    wq, wqs = wtrainer.train()
+    wbaked = qat.bake(wq)
+    top1["w4a8"] = ev.evaluate(wp, ws)["top1"]
+    top1["qat_w4a8"] = ev.evaluate(wbaked, wqs)["top1"]
+    held["convnet_w4a8"] = _baked_checks(torch, "qat_w4a8 convnet", convnet.apply, wbaked, wq, wqs, xe,
+                                         {"int8_gemm": 8, "int8_gemm_grouped": 2})
+    phase("qat w4a8", t2, f"init from {SAVED}/w4a8 (dequantized, not re-folded), 1 epoch: top-1 of "
+          f"the w4a8 artifact {top1['w4a8']:.4f}, of qat_w4a8 {top1['qat_w4a8']:.4f}; baked forward bit-equal to its plain run, "
+          f"launches {held['convnet_w4a8']['launches']}, every K1 launch (grouped-K included) bit-equal, "
+          f"max |baked - fake quant| {held['convnet_w4a8']['err']:.4f}; planted bake faults "
+          f"({_fault_line(held['convnet_w4a8'])})")
+
+    for name, mod, init, want in (
+        ("resnet50", resnet, lambda g: resnet.init(g, depth=50, device=dev),
+         {"int8_gemm": 54, "residual_boundary": 15}),
+        ("mobilenetv2", mobilenet, lambda g: mobilenet.init(g, device=dev),
+         {"int8_gemm": 36, "depthwise_conv": 17}),
+    ):
+        t3 = time.perf_counter()
+        p, s = init(torch.Generator().manual_seed(SEED))
+        g = torch.Generator().manual_seed(SEED + 5)
+        xb = torch.randn((BIG_BATCH, BIG_IMAGE, BIG_IMAGE, 3), generator=g).to(dev)
+        yb = torch.randint(0, 1000, (BIG_BATCH,), generator=g).to(dev)
+        with torch.no_grad():
+            for _ in range(BN_RECALIBRATION):
+                s = mod.apply(p, s, xb, train=True)[1]
+        bq, bqs = qat.prepare(p, s, mod.apply, [xb])
+        bq = clone_tree(bq, dev, requires_grad=True)
+        opt = Optimizer(TrainConfig(epochs=1, lr=0.001, grad_clip_norm=1.0), BIG_QAT_STEPS)
+        leaves = tensor_leaves(bq)
+        opt_state = opt.init(leaves)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        losses = [float(train_step(mod.apply, opt, bq, bqs, opt_state, leaves, gen, xb, yb,
+                                   augment=False)[1]) for _ in range(BIG_QAT_STEPS)]
+        check(all(math.isfinite(v) for v in losses), f"[qat {name}] losses {losses}")
+        bq = clone_tree(bq)
+        bbaked = qat.bake(bq)
+        held[name] = r = _baked_checks(torch, f"qat {name}", mod.apply, bbaked, bq, bqs, xb, want, deep=True)
+        phase(f"qat {name}", t3, f"bs{BIG_BATCH} {BIG_IMAGE}x{BIG_IMAGE}, init with BN statistics of "
+              f"{BN_RECALIBRATION} train-mode forwards: prepare (fold, min-max on the batch), {BIG_QAT_STEPS} QAT steps (loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}), bake; baked forward bit-equal to its plain run, launches "
+              f"{r['launches']}, every K1 / K3 / K4 launch bit-equal; baked against the fake-quant graph "
+              f"it deploys: max |diff| {r['err']:.4f}, relative L2 {r['rel']:.4g} (bound {QAT_DEEP_REL_L2}; "
+              f"the JAX test's elementwise bound {'holds' if r['jax_bound'] else 'does not hold'}); against "
+              f"the graph as it trained (identities unquantized) relative L2 {r['trained_rel']:.4f}; "
+              f"planted bake faults, which must exceed the bound ({_fault_line(r)})")
+
+    t4 = time.perf_counter()
+    demo = ptq_collapse(torch, dev)
+    check(abs(demo["rescaled"] - demo["fp32"]) <= 1e-6 and demo["ptq"] <= demo["fp32"] - 0.08
+          and demo["qat"] >= demo["ptq"] + 0.05, f"[qat collapse] {demo}")
+    phase("qat collapse", t4, f"tests/test_qat.py's PTQ-collapse demonstration on the card: top-1 fp32 "
+          f"{demo['fp32']:.4f} (rescaled {demo['rescaled']:.4f}), per-tensor PTQ {demo['ptq']:.4f}, "
+          f"per-tensor QAT {demo['qat']:.4f}")
+    return {"launches": {k: v["launches"] for k, v in held.items()}, "top1": top1, "split": split}
+
+
+def cli_train_phase(torch):
+    """[cli train]: python -m quantnet_torch train -> qat -> evaluate in
+    process, in a temporary directory under build/."""
+    import pathlib
+    import tempfile
+
+    from quantnet_torch.cli.main import main as cli
+
+    t0 = time.perf_counter()
+    root = pathlib.Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root / "build") as d:
+        args = ["--save-dir", f"{d}/saved", "--results-dir", f"{d}/results", "--data-dir", f"{d}/data",
+                "--synthetic-train-size", "2048", "--synthetic-test-size", "2560"]
+        trained = cli(["train", "--epochs", "1", *args])
+        tuned = cli(["qat", "--epochs", "1", "--calibration-batches", "2", *args])
+        acc = cli(["evaluate", *args])
+    check(len(trained["history"]) == 1 and tuned["name"] == "qat", f"[cli train] {trained} {tuned}")
+    check(list(acc) == ["fp32", "qat"] and all(r["n"] == 2560 for r in acc.values()),
+          f"[cli train] evaluate: {list(acc)}")
+    phase("cli train", t0, f"train (1 epoch on 2048 images, best top-1 {trained['best_accuracy']:.4f}) -> "
+          f"qat (1 epoch, fake-quant graph {tuned['best_accuracy']:.4f}) -> evaluate (top-1 fp32 "
+          f"{acc['fp32']['top1']:.4f}, qat {acc['qat']['top1']:.4f})")
+
+
+def _collapse_init(torch, device):
+    """The PTQ-collapse demo's model (tests/test_qat.py:113-126): a 3x3/2
+    conv to 16 channels with relu, a global mean, an fc to 4 classes."""
+    g = torch.Generator().manual_seed(0)
+    return {"conv1": {"w": (torch.randn((3, 3, 3, 16), generator=g) * 0.2).to(device),
+                      "b": torch.zeros(16, device=device)},
+            "fc": {"w": (torch.randn((16, 4), generator=g) * 0.3).to(device),
+                   "b": torch.zeros(4, device=device)}}, {}
+
+
+def _collapse_apply(params, state, x, *, train=False, generator=None, capture=None):
+    from quantnet_torch.models import capture_input
+    from quantnet_torch.ops.conv import conv2d
+    from quantnet_torch.ops.linear import linear
+
+    capture_input(capture, "conv1", x, ("conv", 2, "SAME", "relu"))
+    x = conv2d(params["conv1"], x, stride=2, padding="SAME", activation="relu").mean(dim=(1, 2))
+    capture_input(capture, "fc", x, ("linear", None, None, None))
+    return linear(params["fc"], x), state
+
+
+def ptq_collapse(torch, device) -> dict:
+    """The port of the JAX package's test_qat_recovers_ptq_collapse
+    (tests/test_qat.py:129-182): train the small model, spread its conv
+    channels over three decades by a function-preserving rescale (relu's
+    positive homogeneity), so per-tensor static PTQ rounds most channels to
+    zero; a per-tensor QAT finetune of 4 epochs learns weights that fit the
+    grid again. Returns the top-1 of fp32, the rescaled fp32, PTQ and QAT,
+    and the baked tree and its inputs."""
+    from quantnet_torch.core.config import TrainConfig
+    from quantnet_torch.data.datasets import make_synthetic
+    from quantnet_torch.evaluation.evaluator import Evaluator
+    from quantnet_torch.quantize import qat, static
+    from quantnet_torch.train.trainer import Trainer
+
+    train, test = make_synthetic(4, 16, 1024, 512, seed=11, signal_max=6.0)
+    params, state = _collapse_init(torch, device)
+    params, state = Trainer(_collapse_apply, params, state,
+                            TrainConfig(epochs=6, batch_size=128, lr=0.05, seed=0), train, test,
+                            augment=False, log=None, device=device).train()
+    ev = Evaluator(_collapse_apply, test, batch_size=128, top_k=2, device=device)
+    f = torch.logspace(-2, 1, 16, device=device)
+    rescaled = {"conv1": {"w": params["conv1"]["w"] * f, "b": params["conv1"]["b"] * f},
+                "fc": {"w": params["fc"]["w"] / f[:, None], "b": params["fc"]["b"]}}
+    calib = [torch.from_numpy(x).to(device) for x, _ in train.batches(128, drop_remainder=True)][:2]
+    sp, ss = static.quantize(rescaled, state, _collapse_apply, calib, per_channel=False)
+    qp, qs = qat.prepare(rescaled, state, _collapse_apply, calib, per_channel=False)
+    qtrainer = Trainer(_collapse_apply, qp, qs, TrainConfig(epochs=4, batch_size=128, lr=0.01, seed=1),
+                       train, test, augment=False, log=None, device=device)
+    qp, qs = qtrainer.train()
+    baked = qat.bake(qp)
+    return {"fp32": ev.evaluate(params, state)["top1"], "rescaled": ev.evaluate(rescaled, state)["top1"],
+            "ptq": ev.evaluate(sp, ss)["top1"], "qat": ev.evaluate(baked, qs)["top1"],
+            "baked": baked, "fake_quant": qp, "images": torch.from_numpy(test.images[:128]).to(device)}
+
+
 def main() -> int:
     import torch
 
-    name, _ = device_phase(torch)
+    name, card = device_phase(torch)
     dev = torch.device("cuda", 0)
     build_phase()
     int8_err = int8_gemm_phase(torch, dev)
@@ -1947,6 +2636,9 @@ def main() -> int:
     observers_phase(torch, dev, models["resnet50"])
     accuracy = accuracy_phase(torch, dev, models)
     cli_phase(torch)
+    train_phase(torch, dev, card)
+    qat = qat_phase(torch, dev, card)
+    cli_train_phase(torch)
 
     def entry(kname, path, source, replaces, launches, err, sums, library):
         return {
@@ -2032,7 +2724,19 @@ def main() -> int:
              ("depthwise_conv", "mobilenetv2")}
     refined = {("int8_gemm", "resnet50"), ("residual_boundary", "resnet50"),
                ("int8_gemm_grouped", "convnet_w4a8")}
+    # The baked QAT trees' launches ([qat], each forward's wrapper counts):
+    # the convnet's int8 stores, qat_w4a8's grouped-K mode, ResNet-50's and
+    # MobileNetV2's K1 with K3 and K4.
+    qat_trees = {("int8_gemm", "convnet_static"): ("convnet", "int8_gemm"),
+                 ("int8_gemm", "resnet50"): ("resnet50", "int8_gemm"),
+                 ("int8_gemm", "mobilenetv2"): ("mobilenetv2", "int8_gemm"),
+                 ("residual_boundary", "resnet50"): ("resnet50", "residual_boundary"),
+                 ("depthwise_conv", "mobilenetv2"): ("mobilenetv2", "depthwise_conv"),
+                 ("int8_gemm_grouped", "convnet_w4a8"): ("convnet_w4a8", "int8_gemm_grouped")}
     for e in kernels:
+        if (e["name"], e["path"]) in qat_trees:
+            tree, kernel = qat_trees[(e["name"], e["path"])]
+            e["qat_launches"] = qat["launches"][tree][kernel]
         if (e["name"], e["path"]) in swept:
             e["accuracy_sweep_launches"] = accuracy["sweep"][e["name"]]
         if (e["name"], e["path"]) in refined:

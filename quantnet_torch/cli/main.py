@@ -1,11 +1,13 @@
-"""The port's command line: import-torch / quantize / evaluate / bench / serve
-(counterpart of the artifact stages of quantnet/cli/main.py).
+"""The port's command line: train / import-torch / quantize / qat / evaluate /
+bench / serve (counterpart of quantnet/cli/main.py).
 
+    python -m quantnet_torch train --epochs 20 --batch-size 128
     python -m quantnet_torch import-torch --ckpt model.pth
     python -m quantnet_torch quantize --scheme static --observer histogram
     python -m quantnet_torch quantize --scheme w4a8 --int4-group-size 128
     python -m quantnet_torch quantize --equalize --int4-guard 50 --adaround-steps 400 \
         --bias-correct
+    python -m quantnet_torch qat --epochs 2 --weight-bits 4 --init-from w4a8
     python -m quantnet_torch evaluate --models fp32,static --per-class
     python -m quantnet_torch bench --batch-sizes 1,32,1024
     python -m quantnet_torch serve --scheme static --wire u8
@@ -23,12 +25,16 @@ and scope (quantnet/cli/main.py:135-246, 310-318): --equalize before every
 scheme; --int4-guard measured on the first two calibration batches and
 applied to weight_only_int4 and w4a8; --adaround-steps and then
 --bias-correct on the requested sub-byte tiers; the optimized sweep on the
-first quarter of the calibration batches. `evaluate`, `bench` and `serve`
-load every artifact on disk, as the JAX CLI does, the `qat`, `qat_int4` and
-`qat_w4a8` artifacts the JAX package writes among them. Not ported yet, and
-refused by name: the commands `train`, `qat`, `report`, `scaling` and
-`experiment` and ImageNet data (ROADMAP Queue 1 item 2); serving over
-several cards (--data-parallel) and bench's --s4-runtime (Queue 1 item 3).
+first quarter of the calibration batches. `train` writes the fp32
+artifact (and `history.jsonl`, and a resumable `best.pt` checkpoint);
+`qat` finetunes the fp32 artifact, or with --init-from a quantized one,
+through fake quantization and writes `qat`, `qat_w4a8` (--weight-bits 4) or
+`qat_int4` (--weight-bits 4 --weight-only) (quantnet/cli/main.py:250-285,
+333-447). `evaluate`, `bench` and `serve` load every artifact on disk, as
+the JAX CLI does. Not ported yet, and refused by name: the commands
+`report` and `scaling`, serving over several cards (--data-parallel) and
+bench's --s4-runtime (ROADMAP Queue 1 item 3); `experiment`, which needs
+`report`, and ImageNet data (Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -46,13 +52,11 @@ import numpy as np
 SCHEMES = ("bf16", "dynamic", "static", "weight_only", "weight_only_int4", "w4a8", "optimized")
 SUB_BYTE = ("weight_only_int4", "w4a8")
 # Every artifact evaluate, bench and serve load, in the JAX CLI's order
-# (quantnet/cli/main.py:466-468): the port runs them all, but only the JAX
-# package produces the last three yet.
+# (quantnet/cli/main.py:466-468).
 RUNNABLE = ("fp32",) + SCHEMES + ("qat", "qat_int4", "qat_w4a8")
 NOT_PORTED = (
-    "Not ported yet: the commands train, qat, report, scaling and experiment, and --dataset "
-    "imagenet (ROADMAP Queue 1 item 2); serve --data-parallel and bench --s4-runtime (Queue 1 "
-    "item 3). evaluate, bench and serve load the qat artifacts the JAX package writes."
+    "Not ported yet: the commands report and scaling, serve --data-parallel and bench "
+    "--s4-runtime (ROADMAP Queue 1 item 3); experiment and --dataset imagenet (Queue 1 item 4)."
 )
 
 
@@ -96,6 +100,33 @@ def _apply_fn(name: str, conv1_scale: float = 1.0, torch_pad: bool = False):
     raise SystemExit(f"unknown model {name!r}")
 
 
+def _build_model(args, num_classes: int, image_size: int):
+    """(apply_fn, params, state) of a fresh model, its weights drawn from a
+    CPU generator seeded --seed (the same weights on any device)."""
+    import torch
+
+    apply_fn = _apply_fn(args.model, args.conv1_scale)
+    gen = torch.Generator().manual_seed(args.seed)
+    name = args.model
+    if name == "simple_convnet":
+        from quantnet_torch.models import convnet
+
+        params, state = convnet.init(gen, num_classes=num_classes, image_size=image_size,
+                                     device=args.device)
+    elif name.startswith("resnet"):
+        from quantnet_torch.models import resnet
+
+        params, state = resnet.init(gen, num_classes=num_classes, depth=int(name[len("resnet"):]),
+                                    zero_init_residual=args.zero_init_residual, device=args.device)
+    else:
+        from quantnet_torch.models import mobilenet
+
+        width = float(name.split("_", 1)[1]) if "_" in name else 1.0
+        params, state = mobilenet.init(gen, num_classes=num_classes, width_mult=width,
+                                       device=args.device)
+    return apply_fn, params, state
+
+
 def _load_data(args):
     from quantnet_torch.data import datasets
 
@@ -111,7 +142,7 @@ def _load_data(args):
         )
         return train, test, None
     raise SystemExit(f"--dataset {args.dataset}: the ImageNet loader is not ported yet "
-                     "(ROADMAP Queue 1 item 2)")
+                     "(ROADMAP Queue 1 item 4)")
 
 
 def _artifact_path(save_dir: str, name: str) -> str:
@@ -233,6 +264,102 @@ def _quantize(name, inputs: _Inputs, args):
 
         qp, qs = bias_correct(qp, qs, params, state, apply_fn, inputs.calib)
     return qp, qs, None
+
+
+def cmd_train(args):
+    """Train a fresh model; write the fp32 artifact, history.jsonl and the
+    best epoch's checkpoint (best.pt, which --resume reads)."""
+    from quantnet_torch.core.config import TrainConfig
+    from quantnet_torch.train import checkpoint as ckpt
+    from quantnet_torch.train.trainer import Trainer
+
+    train, test, _ = _load_data(args)
+    apply_fn, params, state = _build_model(args, train.num_classes, train.image_shape[0])
+    cfg = TrainConfig(
+        epochs=args.epochs, batch_size=args.batch_size, lr=args.lr, optimizer=args.optimizer,
+        seed=args.seed, save_dir=args.save_dir, aug_rotation_deg=args.aug_rotation,
+        aug_color_jitter=args.aug_color_jitter, warmup_epochs=args.warmup_epochs,
+    )
+    trainer = Trainer(apply_fn, params, state, cfg, train, test, device=args.device)
+    params, state = trainer.train(
+        save_path=os.path.join(args.save_dir, "best") if args.save_dir else None, resume=args.resume,
+    )
+    ckpt.save_artifact(_artifact_path(args.save_dir, "fp32"), {"params": params, "state": state},
+                       {"model": args.model, "best_accuracy": trainer.best_accuracy})
+    trainer.save_history(os.path.join(args.save_dir, "history.jsonl"))
+    print(f"best accuracy: {trainer.best_accuracy:.4f}")
+    return {"best_accuracy": trainer.best_accuracy, "history": trainer.history}
+
+
+def cmd_qat(args):
+    """Finetune the fp32 artifact through fake quantization (quantize/qat.py),
+    bake it and save it: 'qat' (8-bit weights, static INT8), 'qat_w4a8'
+    (--weight-bits 4) or 'qat_int4' (--weight-bits 4 --weight-only, the
+    classifier f32). --init-from starts from a quantized artifact's weights
+    (an AdaRound-refined w4a8, say) instead of the fp32 tree."""
+    from quantnet_torch.core.config import TrainConfig
+    from quantnet_torch.quantize import qat
+    from quantnet_torch.train import checkpoint as ckpt
+    from quantnet_torch.train.trainer import Trainer
+
+    loaded = _load_fp32(args)
+    if loaded is None:
+        raise SystemExit(f"no fp32 artifact under {args.save_dir}; run train first")
+    params, state, meta = loaded
+    train, test, _ = _load_data(args)
+    apply_fn = _apply_fn(args.model, args.conv1_scale, _torch_pad(meta))
+    calib = _calibration_batches(train, args)
+    if args.weight_only and args.weight_bits == 8 and not args.artifact_name:
+        # It would take the 'qat' name and pass for the static INT8 QAT row.
+        raise SystemExit("--weight-only targets the sub-byte tier; pass --weight-bits 4 "
+                         "(or an explicit --artifact-name for a weight-only int8 QAT)")
+    group_size = (args.weight_group_size or None) if args.weight_bits == 4 else None
+    guard = {}
+    if args.weight_bits == 4 and args.int4_guard > 0:
+        # Outlier layers train and bake with 8-bit weights, as in quantize.
+        from quantnet_torch.quantize.common import first_layer_path
+        from quantnet_torch.quantize.policy import int4_guard
+
+        guard = int4_guard(apply_fn, params, state, calib[:2], group_size=group_size,
+                           rel_threshold=args.int4_guard)
+        if guard and args.skip_first_layer:
+            guard.pop(first_layer_path(params), None)
+        if guard:
+            print(f"int4 guard: 8-bit weight islands at {sorted(guard)}")
+    fold = True
+    if args.init_from:
+        src = _artifact_path(args.save_dir, args.init_from)
+        if not os.path.exists(src + ".json"):
+            raise SystemExit(f"--init-from artifact {src!r} not found; run quantize first")
+        tree, _ = ckpt.load_artifact(src, device=args.device)
+        # Quantized artifacts are BN-folded: f32 weights on their grid, no re-fold.
+        params, state, fold = qat.dequantize_tree(tree["params"]), tree["state"], False
+    qp, qs = qat.prepare(
+        params, state, apply_fn, calib, observer=args.observer, per_channel=not args.per_tensor,
+        skip_first_layer=args.skip_first_layer,
+        # The weight-only tier keeps the classifier f32, as weight_only.quantize does.
+        skip_last_layer=args.weight_only, layer_policy=guard or None,
+        weight_bits=args.weight_bits, weight_group_size=group_size,
+        act_quant=not args.weight_only, fold=fold,
+    )
+    cfg = TrainConfig(
+        epochs=args.epochs, batch_size=args.batch_size, lr=args.lr, optimizer=args.optimizer,
+        seed=args.seed, save_dir=args.save_dir,
+        # The BN-folded STE graph has no normalization left to damp a bad step.
+        grad_clip_norm=args.grad_clip_norm,
+    )
+    trainer = Trainer(apply_fn, qp, qs, cfg, train, test, device=args.device)
+    qp, qs = trainer.train()  # the best epoch's tree
+    name = args.artifact_name or (
+        "qat" if args.weight_bits == 8 else ("qat_int4" if args.weight_only else "qat_w4a8"))
+    ckpt.save_artifact(
+        _artifact_path(args.save_dir, name), {"params": qat.bake(qp), "state": qs},
+        {"model": args.model, "scheme": name, "weight_bits": args.weight_bits,
+         "init_from": args.init_from or None, "qat_best_accuracy": trainer.best_accuracy},
+    )
+    print(f"qat finetune best accuracy (fake-quant graph): {trainer.best_accuracy:.4f}; "
+          f"saved {name} artifact")
+    return {"name": name, "best_accuracy": trainer.best_accuracy, "history": trainer.history}
 
 
 def cmd_quantize(args):
@@ -407,7 +534,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="simple_convnet | resnet18/34/50/101/152 | mobilenetv2[_<width>] "
                              "(default simple_convnet)")
         sp.add_argument("--dataset", default="cifar10", choices=["cifar10", "imagenet", "synthetic"],
-                        help="imagenet is not ported yet (ROADMAP Queue 1 item 2)")
+                        help="imagenet is not ported yet (ROADMAP Queue 1 item 4)")
         sp.add_argument("--image-size", type=int, default=None, help="default 32")
         sp.add_argument("--num-classes", type=int, default=None, help="default 10")
         sp.add_argument("--conv1-scale", type=float, default=1.0,
@@ -423,6 +550,28 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--device", default="cuda",
                         help="cuda (the default; raises without a card) or cpu (the "
                              "kernels' plain versions, for tests)")
+
+    def train_recipe(sp):
+        sp.add_argument("--optimizer", default="sgd_cosine", choices=["sgd_cosine", "adam_plateau"])
+
+    sp = sub.add_parser("train", help="train a fresh model -> the fp32 artifact")
+    common(sp)
+    sp.add_argument("--epochs", type=int, default=20)
+    sp.add_argument("--lr", type=float, default=0.1)
+    train_recipe(sp)
+    sp.add_argument("--resume", action="store_true",
+                    help="continue from the best checkpoint in --save-dir (best.pt)")
+    sp.add_argument("--aug-rotation", type=float, default=0.0,
+                    help="random rotation range in degrees (the reference's RandomRotation(15)); "
+                         "0 disables")
+    sp.add_argument("--aug-color-jitter", type=float, default=0.0,
+                    help="brightness / saturation / contrast jitter strength (the reference's "
+                         "ColorJitter(.2, .2, .2)); 0 disables")
+    sp.add_argument("--warmup-epochs", type=float, default=0.0,
+                    help="linear lr warmup into the cosine schedule (0: the plain cosine)")
+    sp.add_argument("--zero-init-residual", action="store_true",
+                    help="zero the last BN gamma of every residual block (resnet)")
+    sp.set_defaults(fn=cmd_train)
 
     sp = sub.add_parser("import-torch", help="a reference .pth -> the fp32 artifact")
     common(sp)
@@ -461,6 +610,35 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--bias-correct", action="store_true",
                     help="empirical bias correction on the sub-byte tiers, after AdaRound")
     sp.set_defaults(fn=cmd_quantize)
+
+    sp = sub.add_parser("qat", help="finetune through fake quantization -> qat / qat_w4a8 / qat_int4")
+    common(sp)
+    sp.add_argument("--epochs", type=int, default=2, help="finetune epochs, from the fp32 artifact")
+    sp.add_argument("--lr", type=float, default=0.01, help="finetune lr (about 1/10 of training's)")
+    train_recipe(sp)
+    sp.add_argument("--observer", default="minmax",
+                    choices=["minmax", "moving_average", "histogram", "mse"])
+    sp.add_argument("--calibration-batches", type=int, default=16)
+    sp.add_argument("--grad-clip-norm", type=float, default=1.0,
+                    help="global-norm gradient clip of the finetune (0 disables)")
+    sp.add_argument("--per-tensor", action="store_true", help="per-tensor weight fake quant")
+    sp.add_argument("--skip-first-layer", action="store_true", help="keep the stem in fp32")
+    sp.add_argument("--weight-bits", type=int, default=8, choices=[8, 4],
+                    help="weight fake-quant width; 4 is sub-byte QAT")
+    sp.add_argument("--weight-group-size", type=int, default=128,
+                    help="rows of K that share a scale in 4-bit dense layers (0 = per channel)")
+    sp.add_argument("--weight-only", action="store_true",
+                    help="train and bake the weight_only_int4 contract (f32 activations, the "
+                         "classifier f32) instead of W4A8")
+    sp.add_argument("--init-from", default="",
+                    help="start from this quantized artifact's weights, e.g. w4a8 or "
+                         "weight_only_int4")
+    sp.add_argument("--int4-guard", type=float, default=0.0,
+                    help="keep 8-bit weights where a layer's measured int4 damage exceeds this "
+                         "multiple of the median (0 disables)")
+    sp.add_argument("--artifact-name", default="",
+                    help="the saved artifact's name (default qat / qat_w4a8 / qat_int4)")
+    sp.set_defaults(fn=cmd_qat)
 
     sp = sub.add_parser("evaluate", help="top-1 / top-5 / per-class of the artifacts")
     common(sp)

@@ -21,12 +21,17 @@ static.py:255-304) and `/ 255` in `affine_qparams` (static.py:100). The port
 always computes those as `* f32(1 / c)`, so its activation scales and baked
 trees hold the same bits as the jitted JAX package's (eager JAX divides, and
 differs from both in about 5% of per-row scales).
+
+QAT's straight-through fake quantizers (`fake_quant_act_ste`,
+`fake_quant_weight_ste`) compute the JAX package's floats, and `clip` gives
+jnp.clip's gradient, which is 0.5, not 1, on the clip's ends.
 """
 from __future__ import annotations
 
 import functools
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from quantnet_torch.core.types import QTensor
@@ -151,3 +156,73 @@ def maybe_requantize(y: torch.Tensor, out_quant) -> torch.Tensor:
     if out_quant is None:
         return y
     return quantize_affine(y, out_quant.scale, out_quant.zero_point)
+
+
+class _Clip(torch.autograd.Function):
+    """clamp(x, lo, hi) with jnp.clip's gradient: 1 inside, 0 outside and
+    0.5 at lo or hi, where jnp.clip's max / min split a tie between their
+    two operands (torch.clamp passes all of it)."""
+
+    @staticmethod
+    def forward(ctx, x, lo: float, hi: float):
+        ctx.save_for_backward(x)
+        ctx.lo, ctx.hi = lo, hi
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        inside = ((x > ctx.lo) & (x < ctx.hi)).to(g.dtype)
+        edge = ((x == ctx.lo) | (x == ctx.hi)).to(g.dtype)
+        return g * (inside + 0.5 * edge), None, None
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """jnp.clip(x, lo, hi): the same values, and jnp.clip's gradient where
+    one is asked for. lo and hi must be f32 values."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Clip.apply(x, lo, hi)
+    return torch.clamp(x, lo, hi)
+
+
+@functools.lru_cache(maxsize=None)
+def _act_constants(scale: float, zero_point: int, device: torch.device):
+    """A FakeQuant's (scale, zero point) as f32 and int32 0-d tensors on
+    `device`, made once; and the STE's clip range (INT8_MIN - zp) * scale,
+    (INT8_MAX - zp) * scale, in f32, as host numbers."""
+    s, zp = np.float32(scale), np.float32(zero_point)
+    lo = float((np.float32(INT8_MIN) - zp) * s)
+    hi = float((np.float32(INT8_MAX) - zp) * s)
+    return (torch.tensor(s, device=device), torch.tensor(zero_point, dtype=torch.int32, device=device),
+            lo, hi)
+
+
+def fake_quant_act_ste(x: torch.Tensor, scale: float, zero_point: int) -> torch.Tensor:
+    """Clipped straight-through affine fake quantization of an activation
+    (quantnet/core/quantize.py:166-182): the value is quantize -> dequantize
+    in the frozen domain, written as xc + (fq - xc) with xc = clip(x, lo,
+    hi), so its floats are the JAX package's; the gradient is clip's (1
+    inside the int8 range, 0 outside, 0.5 on its ends)."""
+    s, zp, lo, hi = _act_constants(float(scale), int(zero_point), x.device)
+    with torch.no_grad():
+        fq = dequantize(quantize_affine(x, s, zp), s, zp)
+    xc = clip(x, lo, hi)
+    return xc + (fq - xc.detach())
+
+
+def fake_quant_weight_ste(
+    w: torch.Tensor, per_channel: bool = True, bits: int = 8, group_size: Optional[int] = None
+) -> torch.Tensor:
+    """Straight-through symmetric fake quantization of a weight
+    (quantnet/core/quantize.py:185-211): the scale follows the live weight's
+    absmax, per output channel when per_channel, on the grid quantize_weight
+    gives (groups along K only for a 2-D weight whose K the group divides),
+    so the bake deploys what training simulated. Written w + (fq - w); the
+    gradient is the identity."""
+    with torch.no_grad():
+        if per_channel and group_size is not None and w.ndim == 2 and w.shape[0] % group_size == 0:
+            fq = quantize_symmetric_grouped(w, group_size, bits=bits).dequantize()
+        else:
+            fq = quantize_symmetric(w, (w.ndim - 1) if per_channel else None, bits=bits).dequantize()
+        d = fq - w
+    return w + d

@@ -4,7 +4,8 @@ Plain dataclasses of tensors: PyTorch runs eagerly, so nothing here needs to be
 a pytree. A layer dict holds a `QTensor` under 'w' once quantized, and under
 'aq' either the `DynamicActQuant` marker (dynamic INT8) or an `ActQuant` with
 frozen parameters (static INT8). `ProbeGate` marks a layer of the
-sensitivity sweep (quantnet_torch/quantize/policy.py).
+sensitivity sweep (quantnet_torch/quantize/policy.py), `FakeQuant` a layer
+that trains through fake quantization (quantnet_torch/quantize/qat.py).
 """
 from __future__ import annotations
 
@@ -146,6 +147,38 @@ class ProbeGate:
     bits: int = 8
     group_size: Optional[int] = None
     act_quant: bool = True
+
+
+@dataclass(frozen=True)
+class FakeQuant:
+    """A QAT training island (quantnet/core/types.py:158-225), kept under a
+    float layer's 'fq' key by qat.prepare. The layer then computes with
+    fake-quantized (quantize -> dequantize, straight-through gradients)
+    weights and activations, in f32: the deployed static INT8 layer, made
+    differentiable.
+
+    scale / zero_point: the input's frozen calibration range, host numbers
+        (no tensors, so the optimizer never sees them).
+    per_channel:        the weight quantization's axis choice, which the
+                        bake repeats.
+    weight_bits / weight_group_size: the weight grid (8 or 4 bits; groups
+                        along K for dense layers), as quantize_weight takes it.
+    act_quant:          False trains a weight-only island (f32 activations;
+                        scale and zero_point unused).
+    """
+
+    scale: float
+    zero_point: int
+    per_channel: bool = True
+    weight_bits: int = 8
+    weight_group_size: Optional[int] = None
+    act_quant: bool = True
+
+    def __post_init__(self):
+        object.__setattr__(self, "scale", float(self.scale))
+        object.__setattr__(self, "zero_point", int(self.zero_point))
+        if self.weight_group_size is not None:
+            object.__setattr__(self, "weight_group_size", int(self.weight_group_size))
 
 
 def tree_nbytes(tree) -> int:

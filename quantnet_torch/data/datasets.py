@@ -1,12 +1,12 @@
-"""Host-side data: CIFAR-10 and its deterministic synthetic fallback (the
-port's own copy of quantnet/data/datasets.py:66-337, host side only).
+"""Data: CIFAR-10 and its deterministic synthetic fallback (the port's own
+copy of quantnet/data/datasets.py:66-337).
 
 The arrays are numpy, NHWC f32, and bit for bit the JAX package's from the
-same seed; the evaluator moves each batch to the device. Real CIFAR-10 is
-read from the python-pickle batches (`cifar-10-batches-py`) where they are on
-disk; otherwise `load_cifar10` returns the synthetic class-conditional task,
-so nothing is downloaded. The ImageNet loader comes with the ResNet's
-evaluation.
+same seed. `Dataset.batches` gives the JAX package's batches in its order,
+shuffled epochs included (data/loader.py). Real CIFAR-10 is read from the python-pickle batches
+(`cifar-10-batches-py`) where they are on disk; otherwise `load_cifar10`
+returns the synthetic class-conditional task, so nothing is downloaded. The
+ImageNet loader is not ported yet (ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -16,6 +16,8 @@ from dataclasses import dataclass
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
+
+from quantnet_torch.data.loader import prefetch, shuffled_indices
 
 CIFAR10_CLASSES = (
     "plane", "car", "bird", "cat", "deer", "dog", "frog", "horse", "ship", "truck",
@@ -57,13 +59,33 @@ class Dataset:
         v = (self.raw_u8[sel].astype(np.float64) * r255 - self.mean.astype(np.float64)).astype(np.float32)
         return v * (np.float32(1) / self.std)
 
-    def batches(self, batch_size: int, *, pad_remainder: bool = False) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-        """Yield (images, labels) in order. With pad_remainder the last batch
-        is filled up by wrapping to the first examples (fixed shapes); callers
-        that count use `len(self)` to cut the tail."""
+    def batches(
+        self,
+        batch_size: int,
+        *,
+        shuffle: bool = False,
+        seed: int = 0,
+        drop_remainder: bool = False,
+        pad_remainder: bool = False,
+    ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """Yield (images, labels), as quantnet/data/datasets.py:147-227 does
+        in one process. shuffle takes numpy's default_rng(seed) order, but a
+        uint8 split's training epoch (shuffle and drop_remainder) takes the
+        native loader's order and is assembled a batch ahead on a thread.
+        With pad_remainder the last batch is filled up by wrapping to the
+        first examples (fixed shapes); callers that count use `len(self)` to
+        cut the tail."""
         n = len(self)
+        if self.raw_u8 is not None and shuffle and drop_remainder:
+            idx = shuffled_indices(n, seed)
+            sels = [idx[s : s + batch_size] for s in range(0, n - n % batch_size, batch_size)]
+            yield from prefetch((self._gather(sel), self.labels[sel]) for sel in sels)
+            return
         idx = np.arange(n)
-        for start in range(0, n, batch_size):
+        if shuffle:
+            np.random.default_rng(seed).shuffle(idx)
+        end = n - (n % batch_size) if drop_remainder else n
+        for start in range(0, end, batch_size):
             sel = idx[start : start + batch_size]
             if len(sel) < batch_size and pad_remainder:
                 sel = np.concatenate([sel, idx[: batch_size - len(sel)]])

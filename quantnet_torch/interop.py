@@ -2,10 +2,10 @@
 
 The trees arrive as numpy: `jax.tree.map(np.asarray, tree)` keeps the JAX
 package's own leaf objects (its QTensor, with numpy `values` / `scale`, its
-ActQuant with numpy `scale` / `zero_point`, and its DynamicActQuant marker)
-and turns every array into numpy (a static layer's 'wsum' among them). This module
-reads those objects by their attributes and imports nothing of the JAX
-package. Layouts are the same on both sides (HWIO / (K, N) weights), so no
+ActQuant with numpy `scale` / `zero_point`, its DynamicActQuant and QAT
+FakeQuant markers) and turns every array into numpy (a static layer's
+'wsum' among them). This module reads those objects by their attributes and
+imports nothing of the JAX package. Layouts are the same on both sides (HWIO / (K, N) weights), so no
 array is transposed.
 """
 from __future__ import annotations
@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from quantnet_torch.core.config import resolve_device
-from quantnet_torch.core.types import ActQuant, DynamicActQuant, QTensor
+from quantnet_torch.core.types import ActQuant, DynamicActQuant, FakeQuant, QTensor
 from quantnet_torch.ops.linear import with_gemm_constants
 
 
@@ -28,6 +28,9 @@ def _tensor(a, device) -> torch.Tensor:
 def _convert(node, device):
     if isinstance(node, dict):
         return {k: _convert(v, device) for k, v in node.items()}
+    if hasattr(node, "weight_bits") and hasattr(node, "act_quant"):  # a QAT FakeQuant marker
+        return FakeQuant(node.scale, node.zero_point, node.per_channel, node.weight_bits,
+                         node.weight_group_size, node.act_quant)
     if hasattr(node, "values") and hasattr(node, "scale"):  # a QTensor
         zp = getattr(node, "zero_point", None)
         return QTensor(

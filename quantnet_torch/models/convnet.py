@@ -6,13 +6,16 @@ FC(512->10). Parameters are nested dicts of tensors laid out as the JAX
 package lays them out (HWIO convs, (K, N) dense weights), and images enter
 NHWC as f32[N, 32, 32, 3], so the fc1 flatten order is (H, W, C).
 
-`apply` is the inference forward: with BN (the fp32 model) or BN-folded (the
+`apply` is the forward: with BN (the fp32 model) or BN-folded (the
 quantized model, activation fused into each op's epilogue), under every
-scheme: fp32, bf16, weight-only, dynamic and static INT8. On the static path
-each layer hands its successor int8 in the successor's frozen domain
-(`_chain_plan`), and `capture` records the quantized layers' inputs for
-calibration, with each op's spec under `__specs__` when the caller seeds it
-(models.capture_input). Training comes with Queue 1 item 2.
+scheme: fp32, bf16, weight-only, dynamic and static INT8, and QAT's
+fake-quantized islands. On the static path each layer hands its successor
+int8 in the successor's frozen domain (`_chain_plan`), and `capture` records
+the quantized layers' inputs for calibration, with each op's spec under
+`__specs__` when the caller seeds it (models.capture_input). With
+`train=True` it is differentiable: batchnorm normalizes with the batch's
+statistics and returns the new running ones, and dropout draws its masks
+from `generator` (none without one, as in the JAX package without an rng).
 """
 from __future__ import annotations
 
@@ -23,9 +26,9 @@ import torch
 
 from quantnet_torch.core.config import DEFAULT_FLAGS, Flags, resolve_device
 from quantnet_torch.core.types import ActQuant
-from quantnet_torch.models import capture_input
+from quantnet_torch.models import batchnorm, capture_input, copy_dicts, state_slot
 from quantnet_torch.ops.conv import conv2d
-from quantnet_torch.ops.layers import batchnorm_apply, batchnorm_init, dropout, maxpool2d
+from quantnet_torch.ops.layers import batchnorm_init, dropout, maxpool2d
 from quantnet_torch.ops.linear import linear
 
 CONV_DEFS = [
@@ -98,43 +101,54 @@ def _chain_plan(params: dict) -> dict:
     return plan
 
 
-def _conv_bn_relu(params, state, name, x, flags, capture, out_quant):
+def _conv_bn_relu(params, state, new_state, name, x, flags, capture, out_quant):
     layer = params[name]
     if "bn" in layer:
         x = conv2d(layer, x, flags=flags)
-        return torch.relu(batchnorm_apply(layer["bn"], state[name], x))
+        return torch.relu(batchnorm(layer["bn"], state[name], x, state_slot(new_state, name)))
     capture_input(capture, name, x, ("conv", 1, "SAME", "relu"))
     return conv2d(layer, x, activation="relu", out_quant=out_quant, flags=flags)
 
 
-@torch.no_grad()
 def apply(
     params: dict,
     state: dict,
     x: torch.Tensor,
     *,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
     flags: Flags = DEFAULT_FLAGS,
     capture: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, dict]:
-    """Inference forward on NHWC images. Returns (logits, state).
+    """Forward on NHWC images. Returns (logits, state), the new state under
+    `train` (the inference forward runs without autograd).
 
     `capture`, when a dict is given, receives each quantized layer's input
     on the BN-folded path: what static calibration observes; and each op's
     spec under capture["__specs__"] when the caller seeds that dict.
     """
+    if train:
+        return _forward(params, state, x, True, generator, flags, capture)
+    with torch.no_grad():
+        return _forward(params, state, x, False, None, flags, capture)
+
+
+def _forward(params, state, x, train, generator, flags, capture):
+    new_state = copy_dicts(state) if train else None
     chain = _chain_plan(params)
     for block in (("conv1", "conv2"), ("conv3", "conv4"), ("conv5", "conv6")):
         for name in block:
-            x = _conv_bn_relu(params, state, name, x, flags, capture, chain.get(name))
-        x = dropout(maxpool2d(x), 0.25)
+            x = _conv_bn_relu(params, state, new_state, name, x, flags, capture, chain.get(name))
+        x = dropout(maxpool2d(x), 0.25, generator)
 
     x = x.reshape(x.shape[0], -1)
     fc1 = params["fc1"]
     if "bn" in fc1:
-        x = torch.relu(batchnorm_apply(fc1["bn"], state["fc1"], linear(fc1, x, flags=flags)))
+        x = linear(fc1, x, flags=flags)
+        x = torch.relu(batchnorm(fc1["bn"], state["fc1"], x, state_slot(new_state, "fc1")))
     else:
         capture_input(capture, "fc1", x, ("linear", None, None, "relu"))
         x = linear(fc1, x, activation="relu", out_quant=chain.get("fc1"), flags=flags)
-    x = dropout(x, 0.5)
+    x = dropout(x, 0.5, generator)
     capture_input(capture, "fc2", x, ("linear", None, None, None))
-    return linear(params["fc2"], x, flags=flags), state
+    return linear(params["fc2"], x, flags=flags), new_state if train else state

@@ -18,22 +18,26 @@ Mirrored from the JAX package, on purpose: `_block_cin` reads the input
 channels of a block's first conv, which for a t=1 block (block0, no expand)
 is the depthwise kernel's I axis, 1. So block0's residual never fires, also
 at widths where torchvision's would (width 0.25: stem and block0 both 8
-wide). ROADMAP Queue 3 records it. Training comes with Queue 1 item 2.
+wide). ROADMAP Queue 3 records it. With `train=True` the forward is
+differentiable, batchnorm takes the batch's statistics and returns the new
+running ones, and the head's dropout draws its mask from `generator`
+(mobilenet.py:147-160,291).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 
 from quantnet_torch.core.config import DEFAULT_FLAGS, Flags, resolve_device
-from quantnet_torch.core.quantize import dequantize, quantize_affine
+from quantnet_torch.core.quantize import dequantize, fake_quant_act_ste, quantize_affine
 from quantnet_torch.core.types import ActQuant, QTensor
-from quantnet_torch.models import capture_input
+from quantnet_torch.models import batchnorm, capture_input, copy_dicts, state_slot
 from quantnet_torch.ops.conv import conv2d
 from quantnet_torch.ops.int8_matmul import activation
-from quantnet_torch.ops.layers import avgpool_global, batchnorm_apply, batchnorm_init, dropout
+from quantnet_torch.ops.layers import avgpool_global, batchnorm_init, dropout
 from quantnet_torch.ops.linear import linear
 
 # (expansion t, output channels c, repeats n, first-block stride s): Sandler
@@ -131,10 +135,12 @@ def init(
 
 
 def _conv_bn_act(layer, state, x, *, stride, padding, act, capture, path, flags, groups=1,
-                 out_quant=None):
+                 out_quant=None, slot=None):
+    """Conv, then BN where the layer keeps it (`slot`, in train mode,
+    receives the new running statistics), then the activation."""
     if "bn" in layer:
         y = conv2d(layer, x, stride=stride, padding=padding, groups=groups, flags=flags)
-        return activation(batchnorm_apply(layer["bn"], state, y), act)
+        return activation(batchnorm(layer["bn"], state, y, slot), act)
     # A depthwise conv is "dwconv": the replay takes its groups from the
     # input's channels, so every spec stays a 4-tuple.
     capture_input(capture, path, x, ("dwconv" if groups > 1 else "conv", stride, padding, act))
@@ -181,17 +187,19 @@ def _block_stride_is_2(index: int) -> bool:
     return strides[index] == 2
 
 
-@torch.no_grad()
 def apply(
     params: dict,
     state: dict,
     x: torch.Tensor,
     *,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
     capture: Optional[dict] = None,
     torch_pad: bool = False,
     flags: Flags = DEFAULT_FLAGS,
 ) -> Tuple[torch.Tensor, dict]:
-    """Inference forward on NHWC images. Returns (logits, state).
+    """Forward on NHWC images. Returns (logits, state), the new state under
+    `train` (the inference forward runs without autograd).
 
     torch_pad takes torch's symmetric (1, 1) padding at the stride-2 sites
     (the stem and the stride-2 depthwise convs) in place of XLA's SAME, which
@@ -200,11 +208,21 @@ def apply(
     calibration), and each op's spec under capture["__specs__"] when the
     caller seeds that dict.
     """
+    if train:
+        return _forward(params, state, x, True, generator, capture, torch_pad, flags)
+    with torch.no_grad():
+        return _forward(params, state, x, False, None, capture, torch_pad, flags)
+
+
+def _forward(params, state, x, train, generator, capture, torch_pad, flags):
+    new_state = copy_dicts(state) if train else None
+    slot = functools.partial(state_slot, new_state)
+
     pad2 = ((1, 1), (1, 1)) if torch_pad else "SAME"
     names = _block_names(params)
     x = _conv_bn_act(
         params["conv_stem"], state.get("conv_stem", {}), x, stride=2, padding=pad2, act="relu6",
-        capture=capture, path="conv_stem", flags=flags,
+        capture=capture, path="conv_stem", flags=flags, slot=slot("conv_stem"),
         out_quant=_chain_aq(params["conv_stem"], _first_conv(params[names[0]])) if names else None,
     )
     for i, name in enumerate(names):
@@ -218,16 +236,21 @@ def apply(
             # identity takes it dequantized (only where the add reads it).
             a = _first_conv(bp)["aq"]
             identity = dequantize(x, a.scale, a.zero_point)
+        elif residual and flags.fake_quant_identity and _first_conv(bp).get("fq") is not None:
+            fq = _first_conv(bp)["fq"]
+            if fq.act_quant:
+                identity = fake_quant_act_ste(x, fq.scale, fq.zero_point)
         h = x
         if "expand" in bp:
             h = _conv_bn_act(
                 bp["expand"], bs.get("expand", {}), h, stride=1, padding="VALID", act="relu6",
-                capture=capture, path=f"{name}/expand", flags=flags,
+                capture=capture, path=f"{name}/expand", flags=flags, slot=slot(name, "expand"),
                 out_quant=_chain_aq(bp["expand"], bp["dw"]),
             )
         h = _conv_bn_act(
             bp["dw"], bs.get("dw", {}), h, stride=stride, padding=pad2 if stride == 2 else "SAME",
             act="relu6", capture=capture, path=f"{name}/dw", flags=flags, groups=hidden,
+            slot=slot(name, "dw"),
             out_quant=_chain_aq(bp["dw"], bp["project"]),
         )
         nxt = _first_conv(params[names[i + 1]]) if i + 1 < len(names) else params["conv_head"]
@@ -236,7 +259,7 @@ def apply(
         # residual block's projection emits f32 for the add.
         h = _conv_bn_act(
             bp["project"], bs.get("project", {}), h, stride=1, padding="VALID", act=None,
-            capture=capture, path=f"{name}/project", flags=flags,
+            capture=capture, path=f"{name}/project", flags=flags, slot=slot(name, "project"),
             out_quant=None if residual else boundary_aq,
         )
         if residual:
@@ -247,8 +270,8 @@ def apply(
             x = h
     x = _conv_bn_act(
         params["conv_head"], state.get("conv_head", {}), x, stride=1, padding="VALID",
-        act="relu6", capture=capture, path="conv_head", flags=flags,
+        act="relu6", capture=capture, path="conv_head", flags=flags, slot=slot("conv_head"),
     )
-    x = dropout(avgpool_global(x), 0.2)
+    x = dropout(avgpool_global(x), 0.2, generator)
     capture_input(capture, "fc", x, ("linear", None, None, None))
-    return linear(params["fc"], x, flags=flags), state
+    return linear(params["fc"], x, flags=flags), new_state if train else state

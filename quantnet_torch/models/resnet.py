@@ -11,11 +11,15 @@ output into the next static conv's domain (`_chain_aq`), and at a block
 boundary the residual add, relu and requantize run in one pass, the
 residual_boundary kernel (ops/residual_boundary.py). The space-to-depth
 stem (`fold_stem_s2d`, the MLPerf trick) rewrites the 7x7/2 stem as a 4x4/1
-conv over 12 channels: K = 192 for the int8 GEMM instead of 147. Training
-comes with a later slice.
+conv over 12 channels: K = 192 for the int8 GEMM instead of 147. With
+`train=True` the forward is differentiable, batchnorm takes the batch's
+statistics and returns the new running ones (resnet.py:271-312), and the
+block boundary runs in PyTorch ops (the kernel has no backward; the JAX
+package skips it under train too).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -23,11 +27,11 @@ import torch
 import torch.nn.functional as F
 
 from quantnet_torch.core.config import DEFAULT_FLAGS, Flags, resolve_device
-from quantnet_torch.core.quantize import dequantize, quantize_affine
+from quantnet_torch.core.quantize import dequantize, fake_quant_act_ste, quantize_affine
 from quantnet_torch.core.types import ActQuant
-from quantnet_torch.models import capture_input
+from quantnet_torch.models import batchnorm, capture_input, copy_dicts, state_slot
 from quantnet_torch.ops.conv import conv2d
-from quantnet_torch.ops.layers import avgpool_global, batchnorm_apply, batchnorm_init
+from quantnet_torch.ops.layers import avgpool_global, batchnorm_init, wants_grad
 from quantnet_torch.ops.linear import linear
 from quantnet_torch.ops.residual_boundary import residual_boundary, residual_boundary_plain
 
@@ -59,13 +63,16 @@ def init(
     *,
     num_classes: int = 1000,
     depth: int = 50,
+    zero_init_residual: bool = False,
     device="cuda",
 ) -> Tuple[dict, dict]:
     """Returns (params, state) on `device` for any depth in VARIANTS; state
     holds the BN running statistics. Weights are drawn from `generator` (a
     fresh one seeded 0 if None) on its own device, so a CPU generator gives the
     same weights on any device. Downsample convs sit where torchvision puts
-    them: in a stage's first block when the stride or the width changes."""
+    them: in a stage's first block when the stride or the width changes.
+    zero_init_residual zeroes each block's last BN gamma (torchvision's
+    option): every residual branch starts as the identity."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
@@ -91,6 +98,9 @@ def init(
             for name, k, ci, co in convs:
                 bs[name] = {}
                 bp[name] = _with_bn(_conv_init(generator, k, k, ci, co, device), co, bs[name], device)
+            if zero_init_residual:
+                last = bp["conv3" if kind == "bottleneck" else "conv2"]["bn"]
+                last["gamma"] = torch.zeros_like(last["gamma"])
             params[stage][str(bi)], state[stage][str(bi)] = bp, bs
             cin = cout
     w = torch.randn((cin, num_classes), generator=generator, device=generator.device)
@@ -101,10 +111,12 @@ def init(
     return params, state
 
 
-def _conv_bn(layer, state, x, *, stride, padding, relu, capture, path, out_quant, flags):
+def _conv_bn(layer, state, x, *, stride, padding, relu, capture, path, out_quant, flags, slot=None):
+    """Conv, then BN where the layer keeps it; `slot` (train mode) receives
+    the new running statistics."""
     if "bn" in layer:
         y = conv2d(layer, x, stride=stride, padding=padding, flags=flags)
-        y = batchnorm_apply(layer["bn"], state, y)
+        y = batchnorm(layer["bn"], state, y, slot)
         return torch.relu(y) if relu else y
     capture_input(capture, path, x, ("conv", stride, padding, "relu" if relu else None))
     return conv2d(
@@ -183,23 +195,29 @@ def _stem_is_s2d(conv1: dict) -> bool:
 def _maxpool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     """torch's MaxPool2d(3, stride=2, padding=1) on NHWC, padding with -inf,
     or with int8's minimum on the int8 handoff path (resnet.py:253-263)."""
+    if wants_grad(x):
+        # Its gradient to a window's first maximum, as JAX's reduce_window.
+        return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, padding=1).permute(0, 2, 3, 1)
     lo = float("-inf") if x.is_floating_point() else torch.iinfo(x.dtype).min
     x = F.pad(x, (0, 0, 1, 1, 1, 1), value=lo)
     return x.unfold(1, 3, 2).unfold(2, 3, 2).amax(dim=(-2, -1))
 
 
-@torch.no_grad()
 def apply(
     params: dict,
     state: dict,
     x: torch.Tensor,
     *,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
     capture: Optional[dict] = None,
     conv1_scale: float = 1.0,
     torch_pad: bool = False,
     flags: Flags = DEFAULT_FLAGS,
 ) -> Tuple[torch.Tensor, dict]:
-    """Inference forward on NHWC images. Returns (logits, state).
+    """Forward on NHWC images. Returns (logits, state), the new state under
+    `train` (the inference forward runs without autograd). `generator` is
+    accepted for the trainer's sake: the ResNet has no dropout.
 
     conv1_scale multiplies the stem input. torch_pad takes torch's symmetric
     padding at the stride-2 sites (stem (3, 3), 3x3 convs (1, 1)) in place of
@@ -210,6 +228,16 @@ def apply(
     blocks the pre-add outputs under '<path>:out' (static calibration); each
     op's spec under capture["__specs__"] when the caller seeds that dict.
     """
+    if train:
+        return _forward(params, state, x, True, capture, conv1_scale, torch_pad, flags)
+    with torch.no_grad():
+        return _forward(params, state, x, False, capture, conv1_scale, torch_pad, flags)
+
+
+def _forward(params, state, x, train, capture, conv1_scale, torch_pad, flags):
+    new_state = copy_dicts(state) if train else None
+    slot = functools.partial(state_slot, new_state)
+
     pad3 = ((1, 1), (1, 1)) if torch_pad else "SAME"
     pad_stem = ((3, 3), (3, 3)) if torch_pad else "SAME"
     boundary = residual_boundary_plain if flags.plain else residual_boundary
@@ -223,7 +251,7 @@ def apply(
         stem, state.get("conv1", {}), x, stride=1 if s2d else 2,
         padding="VALID" if s2d else pad_stem, relu=True,
         capture=capture, path="conv1", out_quant=_chain_aq(stem, params["layer1"]["0"]["conv1"]),
-        flags=flags,
+        flags=flags, slot=slot("conv1"),
     )
     x = _maxpool_3x3_s2(x)
 
@@ -242,6 +270,9 @@ def apply(
             def dequant_in():
                 # The identity branch reads an int8 block input dequantized.
                 if block_in.dtype != torch.int8:
+                    fq = bp["conv1"].get("fq")
+                    if flags.fake_quant_identity and fq is not None and fq.act_quant:
+                        return fake_quant_act_ste(block_in, fq.scale, fq.zero_point)
                     return block_in
                 a = bp["conv1"]["aq"]
                 return dequantize(block_in, a.scale, a.zero_point)
@@ -250,6 +281,7 @@ def apply(
                 return _conv_bn(
                     bp[name], bs.get(name, {}), inp, stride=stride_, padding=padding, relu=relu,
                     capture=capture, path=f"{prefix}/{name}", out_quant=out_quant, flags=flags,
+                    slot=slot(stage, str(bi), name),
                 )
 
             if bottleneck:
@@ -277,7 +309,7 @@ def apply(
 
             nxt = _next_conv1(params, si, bi)
             boundary_aq = _chain_aq(bp[last], nxt) if nxt is not None else None
-            if boundary_aq is not None and out.dtype != torch.int8:
+            if boundary_aq is not None and out.dtype != torch.int8 and not train:
                 # The block boundary in one pass (resnet.py:434-452).
                 if identity is None and block_in.dtype == torch.int8:
                     x = boundary(out, block_in, bp["conv1"]["aq"], boundary_aq)
@@ -296,4 +328,4 @@ def apply(
 
     x = avgpool_global(x)
     capture_input(capture, "fc", x, ("linear", None, None, None))
-    return linear(params["fc"], x, flags=flags), state
+    return linear(params["fc"], x, flags=flags), new_state if train else state

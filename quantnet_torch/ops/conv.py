@@ -35,8 +35,11 @@ A float layer that carries a `ProbeGate` under 'probe' (the sensitivity
 sweep, quantize/policy.py) runs the lane its gate picks
 (ops/linear.py::probe_lane) through this same dispatch, as
 quantnet/ops/conv.py:171-195 does: on the card the quantized lane of a conv
-is K1's f32 store, of a depthwise conv K4's. The QAT branch (Queue 1 item 2)
-is not ported yet.
+is K1's f32 store, of a depthwise conv K4's. A float layer that carries a
+`FakeQuant` under 'fq' (a QAT training island, quantize/qat.py) convolves
+its fake-quantized input and weight in f32, groups included, and is
+differentiable (quantnet/ops/conv.py:196-225); the train step holds TF32
+off for its backward too (core/config.py::no_tf32).
 """
 from __future__ import annotations
 
@@ -46,7 +49,13 @@ import torch
 import torch.nn.functional as F
 
 from quantnet_torch.core.config import DEFAULT_FLAGS, Flags
-from quantnet_torch.core.quantize import dynamic_quantize, maybe_requantize, quantize_affine
+from quantnet_torch.core.quantize import (
+    dynamic_quantize,
+    fake_quant_act_ste,
+    fake_quant_weight_ste,
+    maybe_requantize,
+    quantize_affine,
+)
 from quantnet_torch.core.types import ActQuant, DynamicActQuant, QTensor
 from quantnet_torch.ops.depthwise_conv import depthwise_conv, depthwise_conv_plain
 from quantnet_torch.ops.int8_matmul import K_ALIGN, Epilogue
@@ -195,7 +204,7 @@ def conv2d(
     groups: int = 1,
     flags: Flags = DEFAULT_FLAGS,
 ) -> torch.Tensor:
-    """Apply a conv layer {'w' (HWIO), optional 'b', 'aq', 'wsum', 'gemm', 'probe'} to NHWC x.
+    """Apply a conv layer {'w' (HWIO), optional 'b', 'aq', 'wsum', 'gemm', 'probe', 'fq'} to NHWC x.
 
     padding: "SAME" (XLA's, asymmetric at stride 2), "VALID", or explicit
     ((top, bottom), (left, right)), as the ResNet's `torch_pad` passes it.
@@ -212,6 +221,14 @@ def conv2d(
     _check_groups(groups, x.shape, w.shape)
     pads = _resolve_pads(padding, x.shape[1], x.shape[2], kh, kw, stride)
     record_conv(x.shape, w.shape, stride, pads)
+
+    fq = layer.get("fq")
+    if fq is not None and not isinstance(w, QTensor):
+        # QAT: the deployed static INT8 conv simulated in f32 (the input in
+        # its frozen domain unless weight-only, the weight on its grid).
+        xq = fake_quant_act_ste(x, fq.scale, fq.zero_point) if fq.act_quant else x
+        wq = fake_quant_weight_ste(w, fq.per_channel, fq.weight_bits, fq.weight_group_size)
+        return float_epilogue(_conv_f32(xq, wq, stride, pads, groups), b, activation, out_quant)
 
     if not isinstance(w, QTensor):
         # The narrow-dtype rule of ops/linear.py: bf16 params pull the

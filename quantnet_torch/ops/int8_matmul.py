@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from quantnet_torch import _build
-from quantnet_torch.core.quantize import quantize_affine
+from quantnet_torch.core.quantize import clip, quantize_affine
 from quantnet_torch.core.types import ActQuant
 
 K_ALIGN = 16
@@ -52,7 +52,8 @@ def activation(y: torch.Tensor, act: Optional[str]) -> torch.Tensor:
     if act == "relu":
         return torch.relu(y) + 0.0
     if act == "relu6":
-        return torch.clamp(y, 0.0, 6.0) + 0.0
+        # jnp.clip's gradient (0.5 at 0 and 6) where one is asked for.
+        return clip(y, 0.0, 6.0) + 0.0
     raise ValueError(f"unknown activation {act!r}")
 
 

@@ -27,8 +27,9 @@ products with TF32 off.
 A float layer that carries a `ProbeGate` under 'probe' (the sensitivity
 sweep, quantize/policy.py) runs the lane its gate picks (`probe_lane`): its
 plain self, or its quantized lane through this same dispatch
-(quantnet/ops/linear.py:109-127). The QAT branch (Queue 1 item 2) is not
-ported yet.
+(quantnet/ops/linear.py:109-127). A float layer that carries a `FakeQuant`
+under 'fq' (QAT) multiplies its fake-quantized input and weight in f32,
+differentiably (quantnet/ops/linear.py:129-152).
 """
 from __future__ import annotations
 
@@ -39,7 +40,13 @@ import torch
 import torch.nn.functional as F
 
 from quantnet_torch.core.config import DEFAULT_FLAGS, Flags
-from quantnet_torch.core.quantize import dynamic_quantize, maybe_requantize, quantize_affine
+from quantnet_torch.core.quantize import (
+    dynamic_quantize,
+    fake_quant_act_ste,
+    fake_quant_weight_ste,
+    maybe_requantize,
+    quantize_affine,
+)
 from quantnet_torch.core.types import ActQuant, DynamicActQuant, QTensor
 from quantnet_torch.ops.fused_dynamic_matmul import (
     fused_dynamic_gemm,
@@ -265,13 +272,19 @@ def linear(
     out_quant: Optional[ActQuant] = None,
     flags: Flags = DEFAULT_FLAGS,
 ) -> torch.Tensor:
-    """Apply a dense layer {'w', optional 'b', 'aq', 'wsum', 'gemm', 'probe'} to x[M, K]."""
+    """Apply a dense layer {'w', optional 'b', 'aq', 'wsum', 'gemm', 'probe', 'fq'} to x[M, K]."""
     w = layer["w"]
     b = layer.get("b")
     if layer.get("probe") is not None and not isinstance(w, QTensor):
         y = linear(probe_lane(layer), x, activation=activation, flags=flags)
         return maybe_requantize(y, out_quant)
     record_linear(x.shape[0], x.shape[1], w.shape[-1])
+    fq = layer.get("fq")
+    if fq is not None and not isinstance(w, QTensor):
+        # QAT: the deployed layer simulated in f32 (see ops/conv.py).
+        xq = fake_quant_act_ste(x, fq.scale, fq.zero_point) if fq.act_quant else x
+        wq = fake_quant_weight_ste(w, fq.per_channel, fq.weight_bits, fq.weight_group_size)
+        return float_epilogue(matmul_f32(xq, wq), b, activation, out_quant)
     if not isinstance(w, QTensor):
         # bf16 params pull f32 activations down to bf16; f32 params leave the
         # activations' dtype as it is (the JAX package's narrow-dtype rule).

@@ -14,10 +14,17 @@ package reads what the other writes. Manifest kinds:
   dynamic_marker  the handoff dtype name
 
 The GEMM constants under a layer's 'gemm' are not saved: `load_artifact`
-makes them again. Training checkpoints come with the training slice.
+makes them again.
+
+Training checkpoints ({params, state, opt_state, epoch, best_accuracy},
+quantnet/train/checkpoint.py:25-53) are the port's own format: one
+`<path>.pt` written by torch.save with its FakeQuant leaves as plain dicts,
+so that it loads with `weights_only`. The JAX package's orbax checkpoints
+are not read (ROADMAP Queue 3).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from typing import Any, Optional, Tuple
@@ -26,7 +33,7 @@ import numpy as np
 import torch
 
 from quantnet_torch.core.config import resolve_device
-from quantnet_torch.core.types import ActQuant, DynamicActQuant, QTensor
+from quantnet_torch.core.types import ActQuant, DynamicActQuant, FakeQuant, QTensor
 from quantnet_torch.ops.linear import with_gemm_constants
 
 
@@ -144,3 +151,60 @@ def load_artifact(path: str, *, device="cuda") -> Tuple[dict, dict]:
         arrays = dict(npz)
     tree = _unflatten("", arrays, blob["manifest"], device)
     return with_gemm_constants(tree), blob["metadata"]
+
+
+_FAKEQUANT = "__fakequant__"
+
+
+def _encode(tree):
+    if isinstance(tree, dict):
+        return {k: _encode(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_encode(v) for v in tree]
+    if isinstance(tree, FakeQuant):
+        return {_FAKEQUANT: dataclasses.asdict(tree)}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    return tree
+
+
+def _decode(tree, device):
+    if isinstance(tree, dict):
+        if _FAKEQUANT in tree:
+            return FakeQuant(**tree[_FAKEQUANT])
+        return {k: _decode(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_decode(v, device) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return tree
+
+
+def _pt(path: str) -> str:
+    return path + ".pt"
+
+
+def exists(path: str) -> bool:
+    """Whether a training checkpoint is at `path`. An orbax checkpoint of the
+    JAX package there (a directory) raises: the port does not read it."""
+    if os.path.exists(_pt(path)):
+        return True
+    if os.path.isdir(path):
+        raise ValueError(f"{path} is an orbax checkpoint of the JAX package, which the port does "
+                         "not read (ROADMAP Queue 3); resume from one the port wrote")
+    return False
+
+
+def save(path: str, tree: dict) -> None:
+    """Write a training checkpoint to `<path>.pt` (written aside, then moved
+    into place)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = _pt(path) + ".tmp"
+    torch.save(_encode(tree), tmp)
+    os.replace(tmp, _pt(path))
+
+
+def restore(path: str, *, device="cuda") -> dict:
+    """Read the training checkpoint at `<path>.pt` onto `device`."""
+    return _decode(torch.load(_pt(path), map_location="cpu", weights_only=True),
+                   resolve_device(device))

@@ -134,13 +134,14 @@ def test_unknown_model_and_missing_subset_fail(pipeline):
         main(["evaluate", "--model", "resnet77", *d])
     with pytest.raises(SystemExit, match="no artifacts for"):
         main(["evaluate", "--models", "bf16", *d])
-    with pytest.raises(SystemExit, match="Queue 1 item 2"):
+    with pytest.raises(SystemExit, match="Queue 1 item 4"):
         main(["evaluate", "--dataset", "imagenet", *d])
 
 
 def test_unported_schemes_and_flags_refused(pipeline, tmp_path, capsys):
-    """What only the JAX package produces yet is refused by name: the commands
-    that train or report, ImageNet data, several cards and the s4 runtime.
+    """What only the JAX package does yet is refused by name: the commands
+    that report (and experiment, which reports), ImageNet data, several cards
+    and the s4 runtime. train and qat are ported (tests/test_torch_cli_train.py).
     The artifacts those commands write are not refused: evaluate, bench and
     serve load them (test_optimized_and_qat_artifacts_load). The optimized
     scheme and the accuracy tools' flags are ported
@@ -157,13 +158,13 @@ def test_unported_schemes_and_flags_refused(pipeline, tmp_path, capsys):
     assert (defaults.equalize, defaults.adaround_steps, defaults.bias_correct, defaults.int4_guard,
             defaults.importance, defaults.optimized_low_tier) == (False, 0, False, 0.0, None,
                                                                    "weight_only")
-    for argv in (["serve", "--data-parallel", "2"], ["bench", "--s4-runtime"], ["train"],
-                 ["qat"], ["experiment"], ["report"], ["scaling"]):
+    for argv in (["serve", "--data-parallel", "2"], ["bench", "--s4-runtime"], ["experiment"],
+                 ["report"], ["scaling"]):
         with pytest.raises(SystemExit) as e:
             main([*argv, *d])
         assert e.value.code == 2, argv  # argparse refuses it
     capsys.readouterr()
-    with pytest.raises(SystemExit, match="Queue 1 item 2"):
+    with pytest.raises(SystemExit, match="Queue 1 item 4"):
         main(["evaluate", "--dataset", "imagenet", *d])
     # An artifact that is not on disk is missing, not unported.
     with pytest.raises(SystemExit, match=r"no artifacts for \['qat'\]"):
@@ -239,7 +240,7 @@ def test_help_names_what_is_not_ported(capsys):
     with pytest.raises(SystemExit):
         main(["quantize", "--help"])
     text = " ".join(capsys.readouterr().out.split())
-    assert "--dataset imagenet (ROADMAP Queue 1 item 2)" in text and "Queue 1 item 1" not in text
+    assert "--dataset imagenet (Queue 1 item 4)" in text and "Queue 1 item 1" not in text
     assert "w4a8" in text and "optimized" in text  # schemes --scheme takes
     for flag in ("--equalize", "--adaround-steps", "--bias-correct", "--int4-guard",
                  "--importance", "--optimized-low-tier"):
