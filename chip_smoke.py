@@ -88,10 +88,23 @@ one line with its wall time:
                 static PTQ and QAT top-1; the QAT step's device-time split
                 (torch.profiler); the PTQ-collapse demonstration
  18. cli train  python -m quantnet_torch train -> qat -> evaluate in process
- 19. kernels    one JSON line with an entry per kernel and path (K1 on four
+ 19. parallel   two spawned ranks sharing the card over gloo: the static
+                convnet's sharded eval counts at bs1024 equal one process's;
+                a convnet train step at bs256 (augmentation, dropout) against
+                one process's on the global batch; cross-process calibration
+                bit-identical on both ranks and equal to merge_all here; a
+                Trainer epoch leaving both ranks' params bit-identical
+ 20. serve dp   the static convnet's engine over [cuda:0, cuda:0]: every
+                response bit-equal to the one-replica engine's; trickle and
+                burst beside the one replica's
+ 21. scaling    the weak-scaling sweep over the card count (n = 1 here)
+ 22. cli experiment  python -m quantnet_torch experiment -> report (again,
+                byte for byte) -> scaling in process
+ 23. kernels    one JSON line with an entry per kernel and path (K1 on four
                 paths, K1's grouped-K mode, K2, K3, K4), its numbers, its
                 launches through the serving engine, counted in device traces,
-                the [accuracy] runs' launches and the baked QAT trees' ones
+                the [accuracy] runs' launches, the baked QAT trees' ones and
+                the data-parallel paths' (K1 on the static convnet)
 Any failed check raises before the last line, which is the only place that
 prints {"ok": true, ...}. Nothing is written outside build/ (gitignored).
 """
@@ -2610,6 +2623,418 @@ def ptq_collapse(torch, device) -> dict:
             "baked": baked, "fake_quant": qp, "images": torch.from_numpy(test.images[:128]).to(device)}
 
 
+# [parallel]: two ranks spawned (not forked: CUDA is live in this process),
+# sharing the card over gloo. The static convnet's sharded eval at a global
+# bs1024 over the synthetic CIFAR-10 test split (2560 images, the last
+# batch padded and masked); one convnet train step at a global bs256 with
+# augmentation (crop, flip, rotation, jitter) and dropout, against one
+# process's step on the global batch: the loss within PARALLEL_LOSS_REL,
+# and per leaf max |diff| <= rtol * max |leaf| + atol. The f32 sums of a
+# batch's halves and of the whole batch part in the last places; where a
+# max pool's window holds a near-tie, the gradient goes to another entry,
+# and the convs' weights below it move by a routing step, not an ulp (as in
+# [train twin]). So the BN statistics (forward only) and fc1 / fc2 are held
+# to PARALLEL_TIGHT, the convs' params to PARALLEL_CONV. In a CPU rehearsal
+# at 32x32 and a global bs16 the loss agreed to 3e-7 relative, fc1 / fc2 to
+# 1e-7, and conv1-conv4's weights moved by up to 1.6e-3 of their largest.
+PARALLEL_RANKS = 2
+PARALLEL_FULL = dict(eval_batch=1024, test_size=2560, train_batch=256, calib=(2, 64), probe=256,
+                     epoch_images=2048, epoch_test=512, epoch_batch=128)
+PARALLEL_LOSS_REL = 1e-5
+PARALLEL_TIGHT = (1e-5, 1e-6)  # rtol, atol: the BN statistics and fc1 / fc2
+PARALLEL_CONV = (1e-2, 1e-6)  # the convs' params, below the pools
+PARALLEL_TIMEOUT_S = 600
+# [serve dp]: the static convnet's engine over [cuda:0, cuda:0] (two shards,
+# a graph each) against the one-replica engine, the same trickle and burst.
+SERVE_DP_BURST = 2048
+# [scaling]: weak scaling at the JAX sweep's per-device batch.
+SCALING_PER_DEVICE = 256
+# [cli experiment]: the schemes the report must list, in the JAX CLI's order.
+EXPERIMENT_SCHEMES = ("fp32", "bf16", "dynamic", "static", "weight_only", "weight_only_int4", "w4a8",
+                      "optimized", "qat")
+
+
+def _tree_digest(torch, tree) -> str:
+    """sha256 of a tree's tensors' bytes, in tensor_leaves order."""
+    import hashlib
+
+    from quantnet_torch.train.trainer import tensor_leaves
+
+    h = hashlib.sha256()
+    for t in tensor_leaves(tree):
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _leaf_excess(torch, got, want, bounds) -> dict:
+    """{group: (worst max|diff| / (rtol * max|leaf| + atol), the leaf)} over
+    the trees' leaves, `bounds(name)` -> (group, rtol, atol)."""
+    from quantnet_torch.train.trainer import tensor_leaves
+
+    out = {}
+    for name, a, b in zip(_leaf_names(torch, want), tensor_leaves(got), tensor_leaves(want)):
+        group, rtol, atol = bounds(name)
+        d = (a.detach() - b.detach()).abs().max().item()
+        excess = d / (rtol * b.detach().abs().max().item() + atol)
+        if excess >= out.get(group, (-1.0, ""))[0]:
+            out[group] = (excess, name)
+    return out
+
+
+def _parallel_bounds(name: str):
+    if name.startswith("s."):
+        return ("BN statistics", *PARALLEL_TIGHT)
+    if name.startswith(("p.fc1", "p.fc2")):
+        return ("fc1 / fc2", *PARALLEL_TIGHT)
+    return ("convs", *PARALLEL_CONV)
+
+
+def _parallel_rank(rank: int, world: int, port: int) -> dict:
+    """One rank of [parallel]; rank 0 also runs the one-process references
+    and holds the ranks' results against each other."""
+    import numpy as np
+    import torch
+
+    from quantnet_torch.core.config import TrainConfig
+    from quantnet_torch.core.types import ActQuant
+    from quantnet_torch.data.datasets import make_synthetic
+    from quantnet_torch.entry import static_entry
+    from quantnet_torch.models import convnet
+    from quantnet_torch.ops.int8_matmul import int8_gemm
+    from quantnet_torch.parallel import mesh as meshlib
+    from quantnet_torch.parallel import steps
+    from quantnet_torch.quantize import static
+    from quantnet_torch.quantize.fold import fold_model
+    from quantnet_torch.train import trainer as tr
+
+    cfg = PARALLEL_FULL
+    dev = meshlib.init_distributed(f"127.0.0.1:{port}", world, rank, device="cuda")
+    mesh = meshlib.make_mesh()
+    one = meshlib.Mesh("local", (dev,), 1)
+    out = {"backend": mesh.backend, "device": str(dev)}
+
+    def sync():
+        _sync(torch, dev)
+
+    # The static convnet's sharded evaluation, rank 0's tree broadcast.
+    _, (q, qs, _) = static_entry(dev, batch_size=8, seed=SEED)
+    q = meshlib.replicate(mesh, q)
+    _, test = make_synthetic(10, 32, 8, cfg["test_size"], name="cifar10-synthetic")
+    bs, n = cfg["eval_batch"], len(test)
+    lbs = bs // world
+
+    def evaluate(m, batches, rows, offset):
+        counts = np.zeros(3, np.int64)
+        for b, (x, y) in enumerate(batches):
+            valid = torch.from_numpy(b * bs + offset + np.arange(rows) < n).to(dev)
+            o = steps.eval_step(m, convnet.apply, q, qs, torch.from_numpy(x).to(dev),
+                                torch.from_numpy(y).to(dev).long(), valid)
+            counts += [o["top1"], o["top5"], o["n"]]
+        return counts.tolist()
+
+    sync()
+    int8_gemm.launches = 0
+    t0 = time.perf_counter()
+    out["eval"] = evaluate(mesh, test.batches(bs, process_shard=True, pad_remainder=True), lbs, rank * lbs)
+    sync()
+    out["eval_s"], out["eval_launches"] = time.perf_counter() - t0, int8_gemm.launches
+    if rank == 0:
+        out["eval_one"] = evaluate(one, test.batches(bs, pad_remainder=True), bs, 0)
+
+    # One convnet train step, augmentation and dropout on.
+    params, state = convnet.init(torch.Generator().manual_seed(SEED), device=dev)
+    g = torch.Generator().manual_seed(SEED + 5)
+    tb = cfg["train_batch"]
+    images = torch.randn((tb, 32, 32, 3), generator=g)
+    labels = torch.randint(0, 10, (tb,), generator=g)
+    step_cfg = TrainConfig(epochs=1, batch_size=tb, lr=0.1)
+
+    def step(m, x, y):
+        opt = tr.Optimizer(step_cfg, 10)
+        p = tr.clone_tree(params, requires_grad=True)
+        leaves = tr.tensor_leaves(p)
+        opt_state = opt.init(leaves)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        kw = dict(augment=True, rotation_deg=15.0, color_jitter=0.2)
+        if m is None:
+            ns, loss, _ = tr.train_step(convnet.apply, opt, p, state, opt_state, leaves, gen, x, y, **kw)
+        else:
+            ns, loss, _ = steps.train_step(m, convnet.apply, opt, p, state, opt_state, leaves, gen, x, y,
+                                           **kw)
+        return tr.clone_tree(p), ns, float(loss)
+
+    dp = step(mesh, *meshlib.shard_batch(mesh, (images, labels)))
+    digests = meshlib.gather_objects(_tree_digest(torch, {"p": dp[0], "s": dp[1]}))
+    if rank == 0:
+        sp = step(None, images.to(dev), labels.to(dev))
+        out["step"] = dict(
+            ranks_identical=len(set(digests)) == 1, loss=dp[2], loss_one=sp[2],
+            loss_rel=abs(dp[2] - sp[2]) / abs(sp[2]),
+            leaves=_leaf_excess(torch, {"p": dp[0], "s": dp[1]}, {"p": sp[0], "s": sp[1]},
+                                _parallel_bounds))
+
+    # Cross-process calibration: each rank observes its rows of each batch.
+    fparams, fstate = fold_model(params, state)
+    g = torch.Generator().manual_seed(SEED + 6)
+    calib = [torch.randn((cfg["calib"][1], 32, 32, 3), generator=g) for _ in range(cfg["calib"][0])]
+    local = [meshlib.shard_batch(mesh, c) for c in calib]
+    probe = torch.randn((cfg["probe"], 32, 32, 3), generator=g).to(dev)
+    out["calibration"] = {}
+    for observer in ("minmax", "histogram"):
+        own = static.observe(convnet.apply, fparams, fstate, local, observer=observer)
+        qp = static.calibrate(convnet.apply, fparams, fstate, local, observer=observer)
+        baked, _ = static.bake(fparams, fstate, qp, skip_first_layer=True)
+        scales = torch.cat([torch.stack([v["aq"].scale.float(), v["aq"].zero_point.float()])
+                            for _, v in sorted(baked.items()) if isinstance(v.get("aq"), ActQuant)])
+        sync()
+        int8_gemm.launches = 0
+        logits = convnet.apply(baked, {}, probe)[0]
+        sync()
+        launches = int8_gemm.launches
+        mine = {"qp": {k: (a.cpu(), b.cpu()) for k, (a, b) in qp.items()}, "scales": scales.cpu(),
+                "logits": logits.cpu(), "own": {k: o.to("cpu") for k, o in own.items()}}
+        both = meshlib.gather_objects(mine)
+        if rank == 0:
+            a, b = both
+            same = all(torch.equal(x, y) for k in a["qp"] for x, y in zip(a["qp"][k], b["qp"][k]))
+            merged = all(
+                all(torch.equal(x.cpu(), y) for x, y in zip(
+                    type(a["own"][k]).merge_all([a["own"][k], b["own"][k]]).to(dev).qparams(), a["qp"][k]))
+                for k in a["qp"])
+            differ = sum(not torch.equal(a["own"][k].qparams()[0], b["own"][k].qparams()[0])
+                         for k in a["qp"])
+            out["calibration"][observer] = dict(
+                qparams_identical=same, scales_identical=torch.equal(a["scales"], b["scales"]),
+                logits_identical=torch.equal(a["logits"], b["logits"]), merge_all_equal=merged,
+                layers=len(a["qp"]), own_differ=differ, launches=launches)
+
+    # A Trainer epoch over the two ranks.
+    train, test2 = make_synthetic(10, 32, cfg["epoch_images"], cfg["epoch_test"], name="cifar10-synthetic")
+    p2, s2 = convnet.init(torch.Generator().manual_seed(SEED), device=dev)
+    trainer = tr.Trainer(convnet.apply, p2, s2, TrainConfig(epochs=1, batch_size=cfg["epoch_batch"],
+                                                            lr=0.1, seed=SEED),
+                         train, test2, mesh=mesh, log=None)
+    sync()
+    t0 = time.perf_counter()
+    p2, s2 = trainer.train(reload_best=False)
+    sync()
+    out["epoch_s"] = time.perf_counter() - t0
+    digests = meshlib.gather_objects(_tree_digest(torch, {"p": p2, "s": s2}))
+    out["epoch"] = dict(ranks_identical=len(set(digests)) == 1, history=trainer.history)
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def _parallel_worker(rank, world, port, results):
+    """A spawned rank: its result, or its traceback, onto `results`."""
+    import traceback
+
+    try:
+        results.put((rank, True, _parallel_rank(rank, world, port)))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+        raise
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_phase(torch, card) -> dict:
+    """[parallel]: two ranks spawned, sharing the card over gloo (the
+    backend printed by each); a failed rank, check or collective, or a rank
+    that outlives PARALLEL_TIMEOUT_S, fails the phase."""
+    import multiprocessing as mp
+    import queue
+
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_parallel_worker, args=(r, PARALLEL_RANKS, port, results))
+             for r in range(PARALLEL_RANKS)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+        while len(got) < PARALLEL_RANKS:
+            try:
+                rank, ok, payload = results.get(timeout=max(deadline - time.monotonic(), 1.0))
+            except queue.Empty:
+                raise SmokeFailure(f"[parallel] no result from ranks "
+                                   f"{sorted(set(range(PARALLEL_RANKS)) - set(got))} in "
+                                   f"{PARALLEL_TIMEOUT_S} s") from None
+            check(ok, f"[parallel] rank {rank} failed:\n{payload}")
+            got[rank] = payload
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    check(all(p.exitcode == 0 for p in procs), f"[parallel] exit codes {[p.exitcode for p in procs]}")
+    r0, r1 = got[0], got[1]
+    check(r0["backend"] == r1["backend"] == "gloo", f"[parallel] backends {r0['backend']}, {r1['backend']}")
+    check(r0["eval"] == r1["eval"] == r0["eval_one"],
+          f"[parallel] sharded counts {r0['eval']} / {r1['eval']}, one process {r0['eval_one']}")
+    check(r0["eval_launches"] > 0, "[parallel] the sharded eval launched no int8_gemm")
+    st = r0["step"]
+    check(st["ranks_identical"], "[parallel] the ranks' params differ after the step")
+    check(st["loss_rel"] <= PARALLEL_LOSS_REL, f"[parallel] step loss {st['loss']} against one "
+          f"process's {st['loss_one']}: rel {st['loss_rel']:.3e} > {PARALLEL_LOSS_REL}")
+    for group, (excess, leaf) in st["leaves"].items():
+        check(excess <= 1.0, f"[parallel] {group}: {leaf} at {excess:.3f}x its bound")
+    for observer, c in r0["calibration"].items():
+        check(c["qparams_identical"] and c["scales_identical"] and c["logits_identical"],
+              f"[parallel] {observer} calibration: ranks differ {c}")
+        check(c["merge_all_equal"], f"[parallel] {observer}: not merge_all of the ranks' observers")
+        check(c["launches"] > 0, f"[parallel] {observer}: the baked forward launched no int8_gemm")
+    check(r0["epoch"]["ranks_identical"] and r1["epoch"]["ranks_identical"],
+          "[parallel] the ranks' params differ after the Trainer epoch")
+    h = r0["epoch"]["history"][0]
+    check(math.isfinite(h["train_loss"]) and math.isfinite(h["test_loss"]), f"[parallel] epoch {h}")
+    top1, top5, rows = r0["eval"]
+    cal = "; ".join(f"{o} {c['layers']} layers bit-identical on both ranks and equal to merge_all here "
+                    f"(own observers differ at {c['own_differ']}), baked forward {c['launches']} "
+                    "int8_gemm" for o, c in r0["calibration"].items())
+    cfg = PARALLEL_FULL
+    phase("parallel", t0, f"{card}; 2 ranks on {r0['device']}, backend {r0['backend']} (ranks share a "
+          f"card): static convnet sharded eval bs{cfg['eval_batch']} top-1 {top1} / top-5 {top5} of "
+          f"{rows}, equal to one process's; {r0['eval_launches']} int8_gemm on rank 0 in "
+          f"{r0['eval_s']:.3f} s; train step bs{cfg['train_batch']} (aug + dropout) loss {st['loss']!r} "
+          f"against one process's {st['loss_one']!r} (rel {st['loss_rel']:.3e}), worst leaf against its "
+          f"bound: " + ", ".join(f"{g} {e:.4f} ({leaf})" for g, (e, leaf) in st["leaves"].items())
+          + f" (tight {PARALLEL_TIGHT}, convs {PARALLEL_CONV}), ranks bit-identical; "
+          f"calibration: {cal}; Trainer epoch on {cfg['epoch_images']} images bs{cfg['epoch_batch']} "
+          f"(its eval of {cfg['epoch_test']} included): {r0['epoch_s']:.3f} s, "
+          f"{cfg['epoch_images'] / r0['epoch_s']:.1f} img/s, test top-1 {h['test_acc']:.4f}, params "
+          "bit-identical on both ranks")
+    return r0
+
+
+def serve_dp_phase(torch, dev, models, card) -> dict:
+    """[serve dp]: the static convnet's engine over [cuda:0, cuda:0] against
+    the one-replica engine: the DP buckets rounded as the JAX engine rounds
+    them, each bucket's replay bit-equal to its eager forward and to the
+    one replica's where the buckets match, one replay launching in a device
+    trace twice the one replica's kernels, every served response the one
+    replica's bits; trickle p50 / p99 and burst req/s of both."""
+    import numpy as np
+
+    from quantnet_torch.bench.trace import kernel_launches, trace
+    from quantnet_torch.parallel.mesh import make_mesh
+    from quantnet_torch.serve import InferenceEngine
+
+    t0 = time.perf_counter()
+    m = models["convnet_static"]
+    shape = (32, 32, 3)
+    rng = np.random.default_rng(SEED + 7)
+    loads = [("trickle", rng.integers(0, 256, (TRICKLE_REQUESTS, *shape), dtype=np.uint8)),
+             ("burst", rng.integers(0, 256, (SERVE_DP_BURST, *shape), dtype=np.uint8))]
+    g = torch.Generator().manual_seed(SEED + 8)
+    probes = {b: torch.randint(0, 256, (b, *shape), generator=g, dtype=torch.uint8).to(dev)
+              for b in (1, 2, 8, 32, 128)}
+    runs = {}
+    for label, kw in (("one replica", dict(device=dev)), ("two shards", dict(mesh=make_mesh(devices=[dev, dev])))):
+        with InferenceEngine(m["apply"], m["q"], m["qs"], image_shape=shape, buckets=SERVE_BUCKETS,
+                             max_wait_ms=2.0, wire_dtype="uint8", normalize=(CIFAR10_MEAN, CIFAR10_STD),
+                             **kw) as eng:
+            replays = {}
+            for b in eng.buckets:
+                got = eng.replay(probes[b])
+                check(torch.equal(got, eng.forward(probes[b])),
+                      f"[serve dp] {label} bucket {b}: replay vs eager forward not bit-equal")
+                replays[b] = got
+            _, prof = trace(lambda: eng.replay(probes[eng.buckets[-1]]))
+            runs[label] = dict(buckets=eng.buckets, replays=replays, launches=kernel_launches(prof),
+                               loads=_serve_loads(eng, loads, 2.0))
+    one, two = runs["one replica"], runs["two shards"]
+    check(two["buckets"] == (2, 8, 32, 128), f"[serve dp] buckets {two['buckets']}")
+    for b in set(one["buckets"]) & set(two["buckets"]):
+        check(torch.equal(one["replays"][b], two["replays"][b]),
+              f"[serve dp] bucket {b}: two shards' replay differs from one replica's")
+    want = {k: 2 * v for k, v in one["launches"].items()}
+    check(two["launches"] == want and any(want.values()),
+          f"[serve dp] one replay launched {two['launches']}, expected {want}")
+    lines = []
+    for kind, imgs in loads:
+        a, b = np.stack(one["loads"][kind][0]), np.stack(two["loads"][kind][0])
+        check(np.array_equal(a, b), f"[serve dp] {kind}: max |diff| {float(np.abs(a - b).max())} "
+              "against one replica, not bit-equal")
+        for label in ("two shards", "one replica"):
+            lines.append(f"{label} {_load_line(kind, len(imgs), *runs[label]['loads'][kind][1:])}")
+    phase("serve dp", t0, f"{card}; static convnet u8 wire over [{dev}, {dev}], buckets "
+          f"{two['buckets']}: every replay bit-equal to its eager forward and to one replica's, one "
+          f"replay launching {two['launches']} (one replica {one['launches']}); every response bit-equal "
+          "to one replica's; " + "; ".join(lines))
+    return {"launches_per_forward": two["launches"]}
+
+
+def scaling_phase(torch, dev, models, card) -> dict:
+    """[scaling]: measure_scaling over the card count, the static convnet."""
+    from quantnet_torch.bench.scaling import measure_scaling
+
+    t0 = time.perf_counter()
+    m = models["convnet_static"]
+    res = measure_scaling(m["apply"], m["q"], m["qs"], per_device_batch=SCALING_PER_DEVICE)
+    check(res["efficiency"].get(1) == 1.0 and all(v > 0 for v in res["throughput"].values()),
+          f"[scaling] {res}")
+    sweep = ", ".join(f"n={n}: {tp:.1f} img/s (efficiency {res['efficiency'][n]:.4f})"
+                      for n, tp in sorted(res["throughput"].items()))
+    phase("scaling", t0, f"{card}; static convnet, per-device batch {SCALING_PER_DEVICE} over "
+          f"{torch.cuda.device_count()} card(s) ({res['device']}): {sweep}")
+    return res
+
+
+def cli_experiment_phase(torch, card) -> None:
+    """[cli experiment]: python -m quantnet_torch experiment --epochs 1
+    --qat-epochs 1 in an empty directory under build/ on 2048 synthetic
+    images: the report's markdown and CSV list every scheme, a second
+    report writes the same bytes; then scaling."""
+    import pathlib
+    import tempfile
+
+    from quantnet_torch.cli.main import main as cli
+
+    t0 = time.perf_counter()
+    root = pathlib.Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    files = ("quantization_comparison.csv", "quantization_comparison.json", "detailed_analysis_report.md")
+    with tempfile.TemporaryDirectory(dir=root / "build") as d:
+        args = ["--save-dir", f"{d}/saved", "--results-dir", f"{d}/results", "--data-dir", f"{d}/data",
+                "--synthetic-train-size", "2048", "--synthetic-test-size", "2560"]
+        out = cli(["experiment", "--epochs", "1", "--qat-epochs", "1", "--batch-sizes", "1,32", "--warmup",
+                   "3", "--iters", "20", *args])
+        res = pathlib.Path(d) / "results"
+        md = (res / "detailed_analysis_report.md").read_text()
+        rows = [ln.split(" | ")[0][2:] for ln in md.splitlines()
+                if ln.startswith("| ") and not ln.startswith("| model")]
+        csv_rows = [ln.split(",")[0] for ln in (res / "quantization_comparison.csv").read_text().splitlines()[1:]]
+        check(rows == csv_rows == list(EXPERIMENT_SCHEMES), f"[cli experiment] report rows {rows}, csv {csv_rows}")
+        before = {f: (res / f).read_bytes() for f in files}
+        t1 = time.perf_counter()
+        cli(["report", *args])
+        check({f: (res / f).read_bytes() for f in files} == before,
+              "[cli experiment] a second report wrote other bytes")
+        report_s = time.perf_counter() - t1
+        sc = cli(["scaling", "--per-device-batch", str(SCALING_PER_DEVICE), *args])
+        written = json.loads((res / "scaling.json").read_text())
+        check(set(written) == {"model", "throughput", "efficiency"} and written["model"] == "static",
+              f"[cli experiment] scaling.json {written}")
+    acc, bench = out["accuracy"], out["benchmark"]
+    phase("cli experiment", t0, f"{card}; train (1 epoch, 2048 images) -> quantize all -> qat (1 epoch) "
+          f"-> evaluate -> bench -> report: top-1 fp32 {acc['fp32']['top1']:.4f}, static "
+          f"{acc['static']['top1']:.4f}, qat {acc['qat']['top1']:.4f}; static bs32 "
+          f"{bench['static']['bs32']['images_per_s']:.1f} img/s; the report lists the "
+          f"{len(EXPERIMENT_SCHEMES)} artifacts and a second report ({report_s:.2f} s) wrote the same "
+          f"bytes; scaling {sc['throughput'][1]:.1f} img/s at n=1")
+
+
 def main() -> int:
     import torch
 
@@ -2639,6 +3064,10 @@ def main() -> int:
     train_phase(torch, dev, card)
     qat = qat_phase(torch, dev, card)
     cli_train_phase(torch)
+    parallel = parallel_phase(torch, card)
+    serve_dp = serve_dp_phase(torch, dev, models, card)
+    scaling_phase(torch, dev, models, card)
+    cli_experiment_phase(torch, card)
 
     def entry(kname, path, source, replaces, launches, err, sums, library):
         return {
@@ -2733,7 +3162,14 @@ def main() -> int:
                  ("residual_boundary", "resnet50"): ("resnet50", "residual_boundary"),
                  ("depthwise_conv", "mobilenetv2"): ("mobilenetv2", "depthwise_conv"),
                  ("int8_gemm_grouped", "convnet_w4a8"): ("convnet_w4a8", "int8_gemm_grouped")}
+    # The data-parallel paths' K1 launches on the static convnet: rank 0's
+    # sharded eval and its calibrated (min-max) forward in [parallel], and
+    # one replay of the two-shard engine in [serve dp] (a device trace).
     for e in kernels:
+        if (e["name"], e["path"]) == ("int8_gemm", "convnet_static"):
+            e.update(parallel_eval_launches=parallel["eval_launches"],
+                     parallel_calibrated_launches=parallel["calibration"]["minmax"]["launches"],
+                     serve_dp_launches_per_forward=serve_dp["launches_per_forward"]["int8_gemm"])
         if (e["name"], e["path"]) in qat_trees:
             tree, kernel = qat_trees[(e["name"], e["path"])]
             e["qat_launches"] = qat["launches"][tree][kernel]

@@ -2,11 +2,14 @@
 (counterpart of quantnet/bench/benchmark.py:121-369).
 
 Timed with CUDA events around each forward after warm-up. There is no CPU
-fallback: a measurement without a card raises.
+fallback: a measurement without a card raises. Asked for the CPU
+(`device="cpu"`, a tiny pipeline's test) it times with the host clock and
+names the device "cpu"; such a figure is the CPU's, never the card's.
 """
 from __future__ import annotations
 
 import statistics
+import time
 from typing import Callable, Dict, Sequence
 
 import torch
@@ -89,7 +92,8 @@ def _cuda_device() -> torch.device:
 
 
 class InferenceBenchmark:
-    """apply_fn(params, state, x) -> (logits, state), on CUDA params."""
+    """apply_fn(params, state, x) -> (logits, state), params on `device`
+    (the card by default)."""
 
     def __init__(
         self,
@@ -99,12 +103,38 @@ class InferenceBenchmark:
         warmup: int = 10,
         iters: int = 50,
         seed: int = 0,
+        device="cuda",
     ):
+        self.device = torch.device(device)
         self.image_size = image_size
         self.channels = channels
         self.warmup = max(warmup, 1)
         self.iters = max(iters, 1)
         self.seed = seed
+
+    def _device(self) -> torch.device:
+        return self.device if self.device.type == "cpu" else _cuda_device()
+
+    def _times_ms(self, apply_fn, params, state, x) -> list:
+        """Each of `iters` forwards' ms: CUDA events on the card, the host
+        clock on the CPU."""
+        if x.device.type == "cpu":
+            times = []
+            for _ in range(self.iters):
+                t0 = time.perf_counter()
+                apply_fn(params, state, x)
+                times.append((time.perf_counter() - t0) * 1e3)
+            return times
+        events = [
+            (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            for _ in range(self.iters)
+        ]
+        for start, end in events:
+            start.record()
+            apply_fn(params, state, x)
+            end.record()
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in events]
 
     def _input(self, batch_size: int, device) -> torch.Tensor:
         g = torch.Generator().manual_seed(self.seed)
@@ -116,24 +146,15 @@ class InferenceBenchmark:
     ) -> Dict[str, float]:
         """Per-forward latency percentiles, throughput and roofline fields
         for one batch size. The first warm-up forward counts the FLOPs."""
-        device = _cuda_device()
+        device = self._device()
         x = self._input(batch_size, device)
         flops = estimate_flops(apply_fn, params, state, x)
         for _ in range(self.warmup - 1):
             apply_fn(params, state, x)
-        events = [
-            (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-            for _ in range(self.iters)
-        ]
-        for start, end in events:
-            start.record()
-            apply_fn(params, state, x)
-            end.record()
-        torch.cuda.synchronize()
-        times = sorted(s.elapsed_time(e) for s, e in events)
+        times = sorted(self._times_ms(apply_fn, params, state, x))
         p50 = statistics.median(times)
         mean = statistics.fmean(times)
-        name = torch.cuda.get_device_name(device)
+        name = "cpu" if device.type == "cpu" else torch.cuda.get_device_name(device)
         stats = {
             "device": name,
             "batch_size": batch_size,
@@ -158,14 +179,24 @@ class InferenceBenchmark:
     ) -> Dict[str, Dict[str, object]]:
         """Per model {name: (apply_fn, params, state)}: model size, then
         latency and throughput at each batch size, and the card's memory."""
-        _cuda_device()
+        device = self._device()
         results: Dict[str, Dict[str, object]] = {}
         for name, (apply_fn, params, state) in models.items():
             size = tree_nbytes(params)
             entry: Dict[str, object] = {"model_size_bytes": size, "model_size_mb": size / (1024 * 1024)}
             for bs in batch_sizes:
                 entry[f"bs{bs}"] = self.measure(apply_fn, params, state, bs)
-            entry["device_memory"] = device_memory_stats()
+            if device.type == "cuda":
+                entry["device_memory"] = device_memory_stats()
             results[name] = entry
         return results
 
+
+def scaling_efficiency(throughput: Dict[int, float]) -> Dict[int, float]:
+    """eff(n) = throughput(n) / (n * throughput(1)), the multi-host metric
+    of the JAX package (quantnet/bench/benchmark.py:372-385); {} without a
+    one-device figure."""
+    base = throughput.get(1)
+    if not base:
+        return {}
+    return {n: tp / (n * base) for n, tp in sorted(throughput.items())}

@@ -1,5 +1,6 @@
 """The port's command line: train / import-torch / quantize / qat / evaluate /
-bench / serve (counterpart of quantnet/cli/main.py).
+bench / report / scaling / serve / experiment (counterpart of
+quantnet/cli/main.py).
 
     python -m quantnet_torch train --epochs 20 --batch-size 128
     python -m quantnet_torch import-torch --ckpt model.pth
@@ -10,7 +11,10 @@ bench / serve (counterpart of quantnet/cli/main.py).
     python -m quantnet_torch qat --epochs 2 --weight-bits 4 --init-from w4a8
     python -m quantnet_torch evaluate --models fp32,static --per-class
     python -m quantnet_torch bench --batch-sizes 1,32,1024
-    python -m quantnet_torch serve --scheme static --wire u8
+    python -m quantnet_torch serve --scheme static --wire u8 --data-parallel -1
+    python -m quantnet_torch report
+    python -m quantnet_torch scaling --per-device-batch 256
+    python -m quantnet_torch experiment --epochs 20 --qat-epochs 2
 
 Artifacts are the JAX package's format (quantnet_torch/train/checkpoint.py),
 so either package reads what the other writes. Every stage runs on the card
@@ -31,10 +35,14 @@ artifact (and `history.jsonl`, and a resumable `best.pt` checkpoint);
 through fake quantization and writes `qat`, `qat_w4a8` (--weight-bits 4) or
 `qat_int4` (--weight-bits 4 --weight-only) (quantnet/cli/main.py:250-285,
 333-447). `evaluate`, `bench` and `serve` load every artifact on disk, as
-the JAX CLI does. Not ported yet, and refused by name: the commands
-`report` and `scaling`, serving over several cards (--data-parallel) and
-bench's --s4-runtime (ROADMAP Queue 1 item 3); `experiment`, which needs
-`report`, and ImageNet data (Queue 1 item 4).
+the JAX CLI does; `serve --data-parallel N` splits each batch over N local
+devices (-1: every card). `report` writes the comparison table and the
+markdown report from accuracy.json and benchmark.json; `scaling` the
+weak-scaling sweep over the local cards (results/scaling.json);
+`experiment` runs train -> quantize all -> qat -> evaluate -> bench ->
+report (quantnet/cli/main.py:685-704). Not ported yet, and refused by name:
+bench's --s4-runtime (ROADMAP Queue 1 item 5) and ImageNet data (Queue 1
+item 4).
 """
 from __future__ import annotations
 
@@ -55,8 +63,8 @@ SUB_BYTE = ("weight_only_int4", "w4a8")
 # (quantnet/cli/main.py:466-468).
 RUNNABLE = ("fp32",) + SCHEMES + ("qat", "qat_int4", "qat_w4a8")
 NOT_PORTED = (
-    "Not ported yet: the commands report and scaling, serve --data-parallel and bench "
-    "--s4-runtime (ROADMAP Queue 1 item 3); experiment and --dataset imagenet (Queue 1 item 4)."
+    "Not ported yet: the model axis and bench --s4-runtime (ROADMAP Queue 1 item 5); "
+    "--dataset imagenet (Queue 1 item 4)."
 )
 
 
@@ -446,7 +454,8 @@ def cmd_bench(args):
     if not models:
         raise SystemExit("no artifacts to bench; run import-torch / quantize first")
     h, _, c = test.image_shape
-    bench = InferenceBenchmark(image_size=h, channels=c, warmup=args.warmup, iters=args.iters)
+    bench = InferenceBenchmark(image_size=h, channels=c, warmup=args.warmup, iters=args.iters,
+                               device=args.device)
     batch_sizes = [int(b) for b in args.batch_sizes.split(",")]
     results = bench.compare_models(models, batch_sizes)
     os.makedirs(args.results_dir, exist_ok=True)
@@ -506,20 +515,98 @@ def cmd_serve(args):
         images = rng.integers(0, 256, size=(args.requests, *shape)).astype(np.uint8)
     else:
         images = rng.normal(size=(args.requests, *shape)).astype(np.float32)
+    mesh = None
+    if args.data_parallel != 1:
+        from quantnet_torch.parallel.mesh import local_devices, make_mesh
+
+        mesh = make_mesh(args.data_parallel, devices=local_devices(args.device))
     with InferenceEngine(apply_fn, params, state, image_shape=shape, buckets=buckets,
-                         max_wait_ms=args.max_wait_ms, device=args.device, **wire) as eng:
+                         max_wait_ms=args.max_wait_ms, device=args.device, mesh=mesh, **wire) as eng:
         t0 = time.perf_counter()
         futs = [eng.submit(img) for img in images]
         for f in futs:
             f.result()
         dt = time.perf_counter() - t0
         stats, occ, lat = dict(eng.stats), eng.occupancy(), eng.latency_stats()
+    shards = f" over {mesh.size} shards" if mesh is not None else ""
     print(
-        f"served {args.requests} requests with '{name}' in {dt:.3f}s "
+        f"served {args.requests} requests with '{name}'{shards} in {dt:.3f}s "
         f"({args.requests / dt:.1f} req/s), {int(stats['batches'])} batches, "
         f"occupancy {occ:.1%}, p50 {lat['p50_ms']:.3f} ms, p99 {lat['p99_ms']:.3f} ms"
     )
-    return {"name": name, "seconds": dt, "stats": stats, "occupancy": occ, "latency": lat}
+    return {"name": name, "seconds": dt, "stats": stats, "occupancy": occ, "latency": lat,
+            "shards": mesh.size if mesh is not None else 1}
+
+
+def cmd_scaling(args):
+    """The weak-scaling sweep over the local devices, on the static artifact
+    (else any, else a fresh fp32 model) -> results/scaling.json."""
+    from quantnet_torch.bench.scaling import measure_scaling
+    from quantnet_torch.parallel.mesh import local_devices
+
+    models, _, _ = _collect_models(args)
+    if models:
+        name = "static" if "static" in models else sorted(models)[0]
+        apply_fn, params, state = models[name]
+    else:
+        name = "fp32-init"
+        apply_fn, params, state = _build_model(args, args.num_classes, args.image_size)
+    res = measure_scaling(apply_fn, params, state, image_size=args.image_size,
+                          per_device_batch=args.per_device_batch, iters=args.iters,
+                          devices=local_devices(args.device))
+    os.makedirs(args.results_dir, exist_ok=True)
+    with open(os.path.join(args.results_dir, "scaling.json"), "w") as f:
+        json.dump({"model": name, **{k: {str(n): v for n, v in res[k].items()}
+                                     for k in ("throughput", "efficiency")}}, f, indent=2)
+    for n, tp in sorted(res["throughput"].items()):
+        eff = res["efficiency"].get(n, 1.0)
+        print(f"{name} x{n} devices ({res['device']}): {tp:.1f} img/s (efficiency {eff:.1%})")
+    return res
+
+
+def cmd_report(args):
+    """The comparison table (CSV, JSON, plot) and the markdown report from
+    accuracy.json and benchmark.json."""
+    from quantnet_torch.report.analyzer import ResultAnalyzer, create_detailed_report
+
+    acc_path = os.path.join(args.results_dir, "accuracy.json")
+    bench_path = os.path.join(args.results_dir, "benchmark.json")
+    if not (os.path.exists(acc_path) and os.path.exists(bench_path)):
+        raise SystemExit("need accuracy.json and benchmark.json; run evaluate + bench")
+    with open(acc_path) as f:
+        accuracy = json.load(f)
+    with open(bench_path) as f:
+        benchmark = json.load(f)
+    table = ResultAnalyzer(args.results_dir).compare_quantization_methods(
+        accuracy, benchmark, batch_size=args.report_batch_size)
+    report = create_detailed_report(table, args.results_dir)
+    print(report)
+    return report
+
+
+def _stage_args(args, cmd: str, **overrides) -> argparse.Namespace:
+    """The namespace `cmd` gets from the experiment's flags: the stage's own
+    defaults, under every flag the experiment shares with it."""
+    stage = build_parser().parse_args([cmd])
+    shared = {k: v for k, v in vars(args).items() if k in vars(stage) and k not in ("cmd", "fn")}
+    vars(stage).update(shared, **overrides)
+    return stage
+
+
+def cmd_experiment(args):
+    """The whole pipeline: train (unless --skip-training finds the fp32
+    artifact) -> quantize every scheme -> the QAT finetune (--qat-epochs, at
+    a tenth of --lr) -> evaluate -> bench -> report, so the report covers
+    the PTQ tiers and QAT in one run."""
+    if not (args.skip_training and _load_fp32(args) is not None):
+        cmd_train(_stage_args(args, "train"))
+    cmd_quantize(_stage_args(args, "quantize", scheme="all"))
+    if args.qat_epochs > 0:
+        cmd_qat(_stage_args(args, "qat", epochs=args.qat_epochs, lr=args.lr * 0.1))
+    accuracy = cmd_evaluate(_stage_args(args, "evaluate"))
+    benchmark = cmd_bench(_stage_args(args, "bench"))
+    report = cmd_report(_stage_args(args, "report"))
+    return {"accuracy": accuracy, "benchmark": benchmark, "report": report}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -650,7 +737,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="print per-class accuracy (top 20, sorted desc)")
     sp.set_defaults(fn=cmd_evaluate)
 
-    sp = sub.add_parser("bench", help="latency, throughput and size on the card")
+    sp = sub.add_parser("bench", help="latency, throughput and size on the card "
+                                      "(--device cpu: the host clock)")
     common(sp)
     sp.add_argument("--batch-sizes", default="1,32,1024")
     sp.add_argument("--warmup", type=int, default=10)
@@ -664,9 +752,54 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--requests", type=int, default=256)
     sp.add_argument("--buckets", default="1,8,32,128")
     sp.add_argument("--max-wait-ms", type=float, default=2.0)
+    sp.add_argument("--data-parallel", type=int, default=1,
+                    help="split each batch over this many local devices (-1: every card)")
     sp.add_argument("--wire", default="f32", choices=["f32", "u8"],
                     help="u8: raw uint8 payloads normalized on the device")
     sp.set_defaults(fn=cmd_serve)
+
+    sp = sub.add_parser("report", help="the comparison table and the markdown report")
+    common(sp)
+    sp.add_argument("--report-batch-size", type=int, default=32)
+    sp.set_defaults(fn=cmd_report)
+
+    sp = sub.add_parser("scaling", help="weak scaling over the local cards -> scaling.json")
+    common(sp)
+    sp.add_argument("--per-device-batch", type=int, default=256)
+    sp.add_argument("--iters", type=int, default=20)
+    sp.set_defaults(fn=cmd_scaling)
+
+    sp = sub.add_parser("experiment", help="train -> quantize all -> qat -> evaluate -> bench -> report",
+                        epilog=NOT_PORTED)
+    common(sp)
+    sp.add_argument("--epochs", type=int, default=20)
+    sp.add_argument("--lr", type=float, default=0.1)
+    train_recipe(sp)
+    sp.add_argument("--skip-training", action="store_true",
+                    help="start from the fp32 artifact in --save-dir when there is one")
+    sp.add_argument("--qat-epochs", type=int, default=2,
+                    help="QAT finetune epochs after PTQ, at a tenth of --lr (0 disables)")
+    sp.add_argument("--observer", default="minmax",
+                    choices=["minmax", "moving_average", "histogram", "mse"])
+    sp.add_argument("--calibration-batches", type=int, default=16)
+    sp.add_argument("--adaround-steps", type=int, default=0,
+                    help="learned-rounding steps on the sub-byte tiers (see quantize)")
+    sp.add_argument("--int4-guard", type=float, default=0.0,
+                    help="sub-byte tiers: keep 8-bit weights at outlier layers (see quantize)")
+    sp.add_argument("--skip-first-layer", action="store_true",
+                    help="static and w4a8: keep the stem in fp32, handing int8 on")
+    sp.add_argument("--pre-add-quant", action="store_true",
+                    help="static: quantize residual operands before the add in downsample blocks")
+    sp.add_argument("--eval-batch-size", type=int, default=512)
+    sp.add_argument("--batch-sizes", default="1,32,1024")
+    sp.add_argument("--warmup", type=int, default=10)
+    sp.add_argument("--iters", type=int, default=100)
+    sp.add_argument("--report-batch-size", type=int, default=32)
+    sp.add_argument("--warmup-epochs", type=float, default=0.0,
+                    help="linear lr warmup into the cosine schedule (0: the plain cosine)")
+    sp.add_argument("--zero-init-residual", action="store_true",
+                    help="zero the last BN gamma of every residual block (resnet)")
+    sp.set_defaults(fn=cmd_experiment)
     return p
 
 

@@ -14,19 +14,58 @@ scatter-add of 1.0 into f32, which stops at 2^24 in a bin of one batch (a
 post-relu ResNet-50 input at bs128 puts about 5e7 zeros in one bin); the
 port counts exactly (`torch.bincount`) and adds the batch's counts to the
 running f32 counts, so both agree bit for bit wherever the JAX counts are
-exact (ROADMAP Queue 3). The cross-process merge (`merge_all`,
-quantnet/core/observers.py:107-135) comes with the `parallel` slice.
+exact (ROADMAP Queue 3).
+
+`merge_all(states)` folds the finished observers of several processes, in
+the order given, into one (quantnet/core/observers.py:46-54, 87-104,
+107-135, 197-205, 276-283), bit for bit as the JAX package's eager
+`merge_all`: min of the mins and max of the maxes; the mean of the moving
+averages over the observers that saw data; the histograms re-binned onto
+their common range, each bucket's mass at its centre. That re-bin adds in
+f32, and several source buckets can land in one target bucket, so the
+port adds in state order, then bucket order, as XLA's CPU scatter does
+(numpy's unbuffered `add.at` on the host). Merging runs on the host; the
+merged observer lies on the first state's device.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import copy
+from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 from quantnet_torch.core.quantize import INT8_MAX, INT8_MIN, _mul_reciprocal, affine_qparams
 
 
-class MinMaxObserver:
+class _Observer:
+    @property
+    def device(self) -> torch.device:
+        """Where the observer's statistics lie (its first tensor's device)."""
+        return next(v for v in vars(self).values() if isinstance(v, torch.Tensor)).device
+
+    def to(self, device) -> "_Observer":
+        """A copy with its tensors on `device`."""
+        out = copy.copy(self)
+        for k, v in vars(out).items():
+            if isinstance(v, torch.Tensor):
+                setattr(out, k, v.to(device))
+        return out
+
+
+def _host_states(states: Sequence[_Observer]):
+    """(the states on the host, the first state's device)."""
+    return [s.to("cpu") for s in states], states[0].device
+
+
+def _ordered_sum(values: torch.Tensor) -> torch.Tensor:
+    acc = values[0]
+    for v in values[1:]:
+        acc = acc + v
+    return acc
+
+
+class MinMaxObserver(_Observer):
     """Running global min / max."""
 
     def __init__(self):
@@ -41,8 +80,18 @@ class MinMaxObserver:
     def qparams(self) -> Tuple[torch.Tensor, torch.Tensor]:
         return affine_qparams(self.min, self.max)
 
+    @classmethod
+    def merge_all(cls, states: Sequence["MinMaxObserver"]) -> "MinMaxObserver":
+        """The min of the mins, the max of the maxes: what one process
+        observing every process's data holds."""
+        host, device = _host_states(states)
+        out = cls()
+        out.min = torch.min(torch.stack([s.min.float() for s in host])).to(device)
+        out.max = torch.max(torch.stack([s.max.float() for s in host])).to(device)
+        return out
 
-class MovingAvgMinMaxObserver:
+
+class MovingAvgMinMaxObserver(_Observer):
     """EMA of the per-batch min / max; the first batch sets them."""
 
     def __init__(self, momentum: float = 0.9):
@@ -63,8 +112,21 @@ class MovingAvgMinMaxObserver:
     def qparams(self) -> Tuple[torch.Tensor, torch.Tensor]:
         return affine_qparams(self.min, self.max)
 
+    @classmethod
+    def merge_all(cls, states: Sequence["MovingAvgMinMaxObserver"]) -> "MovingAvgMinMaxObserver":
+        """The mean of the moving averages over the observers that saw data
+        (the same list folded alike on every process gives the same bits)."""
+        host, device = _host_states(states)
+        init = torch.tensor([float(s.initialized) for s in host])
+        n = torch.clamp_min(_ordered_sum(init), 1.0)
+        out = cls(momentum=states[0].momentum)
+        out.min = (_ordered_sum(torch.stack([s.min.float() for s in host]) * init) / n).to(device)
+        out.max = (_ordered_sum(torch.stack([s.max.float() for s in host]) * init) / n).to(device)
+        out.initialized = any(s.initialized for s in host)
+        return out
 
-class _FixedRangeHistogram:
+
+class _FixedRangeHistogram(_Observer):
     """f32 counts over `bins` equal buckets of [lo, hi], frozen at the first
     update (quantnet/core/observers.py:159-177)."""
 
@@ -101,6 +163,29 @@ class _FixedRangeHistogram:
         frac = (torch.arange(n, dtype=torch.float32, device=self.counts.device) + offset) / float(self.bins)
         return self.lo + (self.hi - self.lo) * frac
 
+    @classmethod
+    def _merged(cls, states: Sequence["_FixedRangeHistogram"], **kwargs) -> "_FixedRangeHistogram":
+        """The histograms re-binned onto their common range [min lo, max hi]
+        of the observers that saw data, each bucket's mass at its centre
+        (quantnet/core/observers.py:107-135)."""
+        host, device = _host_states(states)
+        bins = states[0].bins
+        init = [s.initialized for s in host]
+        inf = torch.tensor(float("inf"))
+        lo = torch.min(torch.stack([s.lo.float() if i else inf for s, i in zip(host, init)]))
+        hi = torch.max(torch.stack([s.hi.float() if i else -inf for s, i in zip(host, init)]))
+        lo = lo if any(init) else torch.tensor(0.0)
+        hi = hi if any(init) and hi > lo else lo + 1.0
+        counts = np.zeros(bins, np.float32)
+        for s in host:
+            centers = s._grid(0.5, bins)
+            t = torch.clamp((centers - lo) / (hi - lo) * float(bins), 0.0, bins - 1)
+            np.add.at(counts, t.to(torch.int64).numpy(), s.counts.float().numpy())
+        out = cls(bins=bins, **kwargs)
+        out.counts = torch.from_numpy(counts).to(device)
+        out.lo, out.hi, out.initialized = lo.to(device), hi.to(device), any(init)
+        return out
+
 
 def _searchsorted(cdf: torch.Tensor, value: float) -> torch.Tensor:
     """jnp.searchsorted(cdf, value) with side='left', value taken as f32."""
@@ -122,6 +207,10 @@ class HistogramObserver(_FixedRangeHistogram):
         lo_idx = torch.clamp(_searchsorted(cdf, tail), 0, self.bins)
         hi_idx = torch.clamp(_searchsorted(cdf, 1.0 - tail) + 1, 0, self.bins)
         return affine_qparams(edges[lo_idx], edges[hi_idx])
+
+    @classmethod
+    def merge_all(cls, states: Sequence["HistogramObserver"]) -> "HistogramObserver":
+        return cls._merged(states, percentile=states[0].percentile)
 
 
 def _linspace_f32(start: float, stop: float, num: int) -> torch.Tensor:
@@ -161,6 +250,10 @@ class MSEObserver(_FixedRangeHistogram):
         mses = torch.sum(self.counts * (centers - deq) ** 2, dim=1)
         best = fracs[torch.argmin(mses)]
         return affine_qparams(torch.clamp_max(obs_lo * best, 0.0), torch.clamp_min(obs_hi * best, 0.0))
+
+    @classmethod
+    def merge_all(cls, states: Sequence["MSEObserver"]) -> "MSEObserver":
+        return cls._merged(states, num_candidates=states[0].num_candidates)
 
 
 OBSERVERS = {

@@ -48,7 +48,8 @@ class Dataset:
         """(H, W, C) of one image."""
         return tuple((self.images if self.raw_u8 is None else self.raw_u8).shape[1:])
 
-    def _gather(self, sel: np.ndarray) -> np.ndarray:
+    def take(self, sel: np.ndarray) -> np.ndarray:
+        """The f32 images at indices `sel`, as a batch of them is assembled."""
         if self.raw_u8 is None:
             return self.images[sel]
         # The JAX package's native batch assembler, as its compiler builds it:
@@ -67,29 +68,60 @@ class Dataset:
         seed: int = 0,
         drop_remainder: bool = False,
         pad_remainder: bool = False,
+        process_shard: bool = False,
+        process_index: Optional[int] = None,
+        process_count: Optional[int] = None,
     ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-        """Yield (images, labels), as quantnet/data/datasets.py:147-227 does
-        in one process. shuffle takes numpy's default_rng(seed) order, but a
-        uint8 split's training epoch (shuffle and drop_remainder) takes the
+        """Yield (images, labels), as quantnet/data/datasets.py:147-227 does.
+        shuffle takes numpy's default_rng(seed) order, but a uint8 split's
+        training epoch in one process (shuffle and drop_remainder) takes the
         native loader's order and is assembled a batch ahead on a thread.
         With pad_remainder the last batch is filled up by wrapping to the
         first examples (fixed shapes); callers that count use `len(self)` to
-        cut the tail."""
+        cut the tail.
+
+        process_shard: batch_size is the global batch; every process walks
+        the same seeded global order and yields its contiguous
+        batch_size / process_count rows of each global batch. The index and
+        count default to the process group's rank and size (0 and 1 without
+        one). A uint8 split's slices of a shuffled, remainder-dropped epoch
+        are assembled a batch ahead on a thread, as the native loader's are."""
         n = len(self)
-        if self.raw_u8 is not None and shuffle and drop_remainder:
+        pi = pc = None
+        if process_shard:
+            from quantnet_torch.parallel.mesh import process_count as count, process_index as index
+
+            pc = process_count if process_count is not None else count()
+            pi = process_index if process_index is not None else index()
+            if batch_size % pc:
+                raise ValueError(f"global batch {batch_size} not divisible by {pc} processes")
+            if not (drop_remainder or pad_remainder):
+                raise ValueError("process_shard requires drop_remainder or pad_remainder (every "
+                                 "process must see the same number of equal batches)")
+        sharded = bool(pc and pc > 1)
+        if self.raw_u8 is not None and shuffle and drop_remainder and not sharded:
             idx = shuffled_indices(n, seed)
             sels = [idx[s : s + batch_size] for s in range(0, n - n % batch_size, batch_size)]
-            yield from prefetch((self._gather(sel), self.labels[sel]) for sel in sels)
+            yield from prefetch((self.take(sel), self.labels[sel]) for sel in sels)
             return
         idx = np.arange(n)
         if shuffle:
             np.random.default_rng(seed).shuffle(idx)
         end = n - (n % batch_size) if drop_remainder else n
+        sels = []
         for start in range(0, end, batch_size):
             sel = idx[start : start + batch_size]
             if len(sel) < batch_size and pad_remainder:
                 sel = np.concatenate([sel, idx[: batch_size - len(sel)]])
-            yield self._gather(sel), self.labels[sel]
+            if sharded:
+                lbs = batch_size // pc
+                sel = sel[pi * lbs : (pi + 1) * lbs]
+            sels.append(sel)
+        if self.raw_u8 is not None and drop_remainder and sharded:
+            yield from prefetch((self.take(sel), self.labels[sel]) for sel in sels)
+            return
+        for sel in sels:
+            yield self.take(sel), self.labels[sel]
 
 
 def _find_cifar10_dir(data_dir: str) -> Optional[str]:

@@ -9,9 +9,19 @@ drawn from an explicit `torch.Generator` or given by the caller; without
 either it is the identity, as the JAX package's is without an rng. Max
 pooling is exact in any dtype; where a gradient is asked for it goes to the
 first maximum of a window, as JAX's reduce_window max sends it.
+
+Inside `sharded_batch(axis)` a rank's rows are its share of a global batch
+(quantnet_torch/parallel/steps.py): train-mode batchnorm takes the global
+batch's statistics, summed across ranks through `axis.sum` (which autograd
+sees, so the gradient reaches every rank's rows), as the JAX step's
+`jnp.mean` over a batch-sharded axis is global; dropout draws the global
+batch's mask and keeps this rank's rows, so the ranks together draw what
+one process draws for the whole batch.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional, Tuple
 
 import numpy as np
@@ -22,6 +32,22 @@ from quantnet_torch.core.quantize import _mul_reciprocal
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # new = (1 - m) * running + m * batch
+
+# The batch axis a train-mode forward's rows are a shard of: an object with
+# `rank`, `size` (ranks, each holding an equal share of the global batch)
+# and `sum(t)` (the sum of every rank's t, differentiable); None in one
+# process.
+_BATCH_AXIS: contextvars.ContextVar = contextvars.ContextVar("batch_axis", default=None)
+
+
+@contextlib.contextmanager
+def sharded_batch(axis):
+    """Run train-mode BN and dropout as shards of a global batch over `axis`."""
+    token = _BATCH_AXIS.set(axis)
+    try:
+        yield
+    finally:
+        _BATCH_AXIS.reset(token)
 
 
 def batchnorm_init(dim: int, device=None) -> Tuple[dict, dict]:
@@ -46,12 +72,20 @@ def batchnorm_train(params: dict, state: dict, x: torch.Tensor) -> Tuple[torch.T
     """Train-mode BN over the last axis (quantnet/ops/layers.py:26-48):
     normalizes with the batch's mean and biased variance, which the gradient
     goes through. Returns (y, new running statistics); these move, outside
-    the graph, toward the batch mean and the unbiased variance."""
+    the graph, toward the batch mean and the unbiased variance. Inside
+    `sharded_batch` the batch is the global one."""
     red = tuple(range(x.ndim - 1))
-    mean = x.mean(dim=red)
-    centered = x - mean
-    var = (centered * centered).mean(dim=red)
     n = x.numel() // x.shape[-1]
+    axis = _BATCH_AXIS.get()
+    if axis is None:
+        mean = x.mean(dim=red)
+        centered = x - mean
+        var = (centered * centered).mean(dim=red)
+    else:
+        n *= axis.size
+        mean = axis.sum(x.sum(dim=red)) / n
+        centered = x - mean
+        var = axis.sum((centered * centered).sum(dim=red)) / n
     with torch.no_grad():
         # m * (var * n / (n - 1)) as XLA folds it under jit: var times the
         # f32 product of the two constants.
@@ -114,10 +148,18 @@ def dropout(
     """where(mask, x / keep, 0) with keep = 1 - rate (quantnet/ops/layers.py:
     92-97); x / keep as the jitted JAX step computes it, a multiply by
     f32(1 / keep). The mask is `mask`, or drawn from `generator` (bernoulli
-    of keep, on the generator's device); with neither, the identity."""
+    of keep, on the generator's device; inside `sharded_batch` drawn for the
+    global batch, this rank's rows kept); with neither, the identity."""
     if rate == 0.0 or (generator is None and mask is None):
         return x
     keep = 1.0 - rate
     if mask is None:
-        mask = torch.rand(x.shape, generator=generator, device=generator.device) < keep
+        axis = _BATCH_AXIS.get()
+        if axis is None:
+            mask = torch.rand(x.shape, generator=generator, device=generator.device) < keep
+        else:
+            m = x.shape[0]
+            draw = torch.rand((m * axis.size, *x.shape[1:]), generator=generator,
+                              device=generator.device)
+            mask = draw[axis.rank * m:(axis.rank + 1) * m] < keep
     return torch.where(mask.to(x.device), _mul_reciprocal(x, keep), 0.0)

@@ -51,11 +51,32 @@ def calibrate(
     observer: str = "minmax",
     observer_kwargs: Optional[dict] = None,
     include_output_stats: bool = False,
+    cross_process: bool = True,
 ) -> QParams:
     """Run the calibration batches through the BN-folded model and return
     {layer_path: (scale, zero_point)}. A batch is an image tensor or a tuple
     whose first item is one. ':out' keys (pre-add residual statistics) are
-    observed only with include_output_stats."""
+    observed only with include_output_stats. With cross_process (a no-op in
+    one process) the observers of every rank are merged first."""
+    obs = observe(apply_fn, params, state, batches, observer=observer,
+                  observer_kwargs=observer_kwargs, include_output_stats=include_output_stats)
+    if cross_process:
+        obs = merge_across_processes(obs)
+    return {k: o.qparams() for k, o in obs.items()}
+
+
+@torch.no_grad()
+def observe(
+    apply_fn: ApplyFn,
+    params: dict,
+    state: dict,
+    batches: Iterable,
+    *,
+    observer: str = "minmax",
+    observer_kwargs: Optional[dict] = None,
+    include_output_stats: bool = False,
+) -> dict:
+    """{layer_path: observer} after the calibration batches (this process's)."""
     observer_kwargs = observer_kwargs or {}
     obs: dict = {}
     for batch in batches:
@@ -69,7 +90,19 @@ def calibrate(
                 obs[key].update(value)
     if not obs:
         raise ValueError("calibration saw no batch")
-    return {k: o.qparams() for k, o in obs.items()}
+    return obs
+
+
+def merge_across_processes(obs: dict) -> dict:
+    """Every rank's observers gathered once, in rank order, through the host,
+    and folded with merge_all key by key; the merged observers lie where
+    this rank's did. The same on every rank, bit for bit. One process: obs."""
+    from quantnet_torch.parallel.mesh import gather_objects, process_count
+
+    if process_count() == 1:
+        return obs
+    gathered = gather_objects({k: o.to("cpu") for k, o in obs.items()})
+    return {k: type(o).merge_all([g[k] for g in gathered]).to(o.device) for k, o in obs.items()}
 
 
 def quantize(

@@ -41,9 +41,15 @@ wrappers' counts do not see it. A replay's kernels are counted in a device
 trace (quantnet_torch/bench/trace.py).
 
 On the CPU (`device="cpu"`, the tests) the engine runs the forward eagerly,
-the kernels' plain versions, with the same threads. Data-parallel serving
-over several cards (the JAX engine's `mesh`) comes with the `parallel` slice
-(ROADMAP Queue 1 item 3).
+the kernels' plain versions, with the same threads.
+
+Data-parallel serving (quantnet/serve/server.py:67-97, 170-175, 268-273):
+with a local mesh (parallel/mesh.py, one process over several devices; a
+device may repeat) the params are replicated once per shard, the buckets
+are rounded up to multiples of the mesh's size as the JAX engine rounds
+them, and each bucket's batch is split into contiguous shards, each run on
+its own device (on the card by a graph of its own, on a stream of its own)
+and the logits gathered in order. The wire is unchanged.
 """
 from __future__ import annotations
 
@@ -52,7 +58,7 @@ import queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -82,13 +88,13 @@ class BucketGraph:
 
 
 class _Slot:
-    """Pinned host buffers of one in-flight batch on the card, and the event
-    recorded after its logits were copied down."""
+    """Pinned host buffers of one in-flight batch on the card, and each
+    shard's event recorded after its logits were copied down."""
 
-    def __init__(self, shape, dtype: torch.dtype):
+    def __init__(self, shape, dtype: torch.dtype, shards: int):
         self.host_in = torch.zeros(shape, dtype=dtype, pin_memory=True)
         self.host_out: Optional[torch.Tensor] = None
-        self.done = torch.cuda.Event()
+        self.done = [torch.cuda.Event() for _ in range(shards)]
 
 
 class InferenceEngine:
@@ -111,15 +117,28 @@ class InferenceEngine:
         device="cuda",
         wire_dtype: str = "float32",
         normalize: Optional[Tuple] = None,
+        mesh=None,
     ):
         """wire_dtype="uint8" takes raw u8 HWC requests, normalized on the
         device with `normalize` = (mean, std) per channel, the training
-        pipeline's statistics (Dataset.mean / std)."""
-        self.device = resolve_device(device)
+        pipeline's statistics (Dataset.mean / std). With a local `mesh`
+        the batches run data-parallel over its devices (`device` unused)."""
         self.apply_fn = apply_fn
-        self.params = params
-        self.state = state
         self.image_shape = tuple(image_shape)
+        if mesh is None:
+            self.device = resolve_device(device)
+            self._shards = [(self.device, params, state)]
+        else:
+            from quantnet_torch.parallel.mesh import replicate
+
+            if mesh.kind != "local":
+                raise ValueError("the engine serves from one process over local devices: a local mesh")
+            if len({d.type for d in mesh.devices}) != 1:
+                raise ValueError(f"a mesh of one device type, got {mesh.devices}")
+            self.device = resolve_device(mesh.devices[0])
+            n = mesh.size
+            buckets = sorted({max(b, n) + (-max(b, n)) % n for b in buckets})
+            self._shards = list(zip(mesh.devices, replicate(mesh, params), replicate(mesh, state)))
         self.buckets = tuple(sorted(buckets))
         self.max_wait_s = max_wait_ms / 1e3
         if wire_dtype not in _WIRE_DTYPES:
@@ -131,19 +150,20 @@ class InferenceEngine:
             )
         self.wire_dtype = np.dtype(wire_dtype)
         self._wire_torch = _WIRE_DTYPES[wire_dtype]
-        self._mean = self._inv_std = None
+        self._norm = None
         if wire_dtype == "uint8":
             mean = torch.as_tensor(np.asarray(normalize[0], np.float32))
             std = torch.as_tensor(np.asarray(normalize[1], np.float32))
-            self._mean = mean.to(self.device)
-            self._inv_std = (torch.ones_like(std) / std).to(self.device)  # f32(1 / std)
+            inv_std = torch.ones_like(std) / std  # f32(1 / std)
+            self._norm = {d: (mean.to(d), inv_std.to(d)) for d, _, _ in self._shards}
         self._cuda = self.device.type == "cuda"
-        self._graphs: Dict[int, BucketGraph] = {}
+        self._graphs: Dict[int, List[BucketGraph]] = {}
         if self._cuda:
-            self._stream = torch.cuda.Stream(self.device)
+            self._streams = [torch.cuda.Stream(d) for d, _, _ in self._shards]
             self._free: "queue.Queue[_Slot]" = queue.Queue()
             for _ in range(INFLIGHT + 1):
-                self._free.put(_Slot((self.buckets[-1], *self.image_shape), self._wire_torch))
+                self._free.put(_Slot((self.buckets[-1], *self.image_shape), self._wire_torch,
+                                     len(self._shards)))
         self._queue: "queue.Queue" = queue.Queue()
         self._stop = threading.Event()
         self._stats_lock = threading.Lock()
@@ -161,21 +181,43 @@ class InferenceEngine:
     # -- the program of a bucket ---------------------------------------------
 
     @torch.no_grad()
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """The eager forward of one batch on the engine's device, in the
-        wire dtype: what a bucket's graph captures."""
-        if self._mean is not None:
-            x = (_mul_reciprocal(x.float(), 255.0) - self._mean) * self._inv_std
-        return self.apply_fn(self.params, self.state, x)[0]
+    def _shard_forward(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Shard i's eager forward of its rows, on its device, in the wire
+        dtype: what its graph of a bucket captures."""
+        device, params, state = self._shards[i]
+        if self._norm is not None:
+            mean, inv_std = self._norm[device]
+            x = (_mul_reciprocal(x.float(), 255.0) - mean) * inv_std
+        return self.apply_fn(params, state, x)[0]
 
-    def _graph(self, b: int) -> BucketGraph:
-        g = self._graphs.get(b)
-        if g is None:
-            with torch.cuda.device(self.device):
-                static_in = torch.zeros((b, *self.image_shape), dtype=self._wire_torch, device=self.device)
-                g = BucketGraph(self.forward, static_in, self._stream)
-            self._graphs[b] = g
-        return g
+    def _split(self, b: int):
+        """Each shard's slice of a bucket of b rows."""
+        m = b // len(self._shards)
+        return [slice(i * m, (i + 1) * m) for i in range(len(self._shards))]
+
+    @torch.no_grad()
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The eager forward of one batch, split over the shards, the logits
+        gathered in order on x's device."""
+        if len(self._shards) == 1:
+            return self._shard_forward(0, x)
+        outs = [self._shard_forward(i, x[rows].to(self._shards[i][0]))
+                for i, rows in enumerate(self._split(x.shape[0]))]
+        return torch.cat([o.to(x.device) for o in outs])
+
+    def _graph(self, b: int) -> List[BucketGraph]:
+        gs = self._graphs.get(b)
+        if gs is None:
+            gs = []
+            for i, rows in enumerate(self._split(b)):
+                device = self._shards[i][0]
+                with torch.cuda.device(device):
+                    static_in = torch.zeros((rows.stop - rows.start, *self.image_shape),
+                                            dtype=self._wire_torch, device=device)
+                    gs.append(BucketGraph(lambda x, i=i: self._shard_forward(i, x), static_in,
+                                          self._streams[i]))
+            self._graphs[b] = gs
+        return gs
 
     # -- public API -------------------------------------------------------
 
@@ -206,16 +248,19 @@ class InferenceEngine:
                 self.forward(torch.zeros((b, *self.image_shape), dtype=self._wire_torch))
 
     def replay(self, x: torch.Tensor) -> torch.Tensor:
-        """One device batch of a bucket's size through that bucket's graph,
-        synchronously; a copy of its logits. For holding a replay against
-        `forward` of the same batch."""
-        g = self._graph(x.shape[0])
-        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
-            g.static_in.copy_(x)
-            g.replay()
-            out = g.static_out.clone()
-        self._stream.synchronize()
-        return out
+        """One device batch of a bucket's size through that bucket's graphs,
+        synchronously; a copy of its logits on x's device. For holding a
+        replay against `forward` of the same batch."""
+        outs = []
+        for i, (g, rows) in enumerate(zip(self._graph(x.shape[0]), self._split(x.shape[0]))):
+            stream = self._streams[i]
+            with torch.cuda.device(stream.device), torch.cuda.stream(stream):
+                g.static_in.copy_(x[rows])
+                g.replay()
+                outs.append(g.static_out.clone())
+        for stream in self._streams:
+            stream.synchronize()
+        return torch.cat([o.to(x.device) for o in outs])
 
     def reset_stats(self):
         """Clear the counters and the latency window (between load phases)."""
@@ -321,20 +366,22 @@ class InferenceEngine:
         self._inflight.put(item)  # blocks while INFLIGHT batches are out
 
     def _issue(self, slot: _Slot, batch, b: int):
-        g = self._graph(b)
+        graphs = self._graph(b)
         host_in = slot.host_in.numpy()
         for i, (img, _, _) in enumerate(batch):
             host_in[i] = img
         host_in[len(batch):b] = 0
-        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
-            g.static_in.copy_(slot.host_in[:b], non_blocking=True)
-            g.replay()
-            out = g.static_out
-            if slot.host_out is None:
-                slot.host_out = torch.empty((self.buckets[-1], *out.shape[1:]), dtype=out.dtype,
-                                            pin_memory=True)
-            slot.host_out[:b].copy_(out, non_blocking=True)
-            slot.done.record(self._stream)
+        if slot.host_out is None:
+            out = graphs[0].static_out
+            slot.host_out = torch.empty((self.buckets[-1], *out.shape[1:]), dtype=out.dtype,
+                                        pin_memory=True)
+        for i, (g, rows) in enumerate(zip(graphs, self._split(b))):
+            stream = self._streams[i]
+            with torch.cuda.device(stream.device), torch.cuda.stream(stream):
+                g.static_in.copy_(slot.host_in[rows], non_blocking=True)
+                g.replay()
+                slot.host_out[rows].copy_(g.static_out, non_blocking=True)
+                slot.done[i].record(stream)
         return (slot, None, batch, b)
 
     def _completion_loop(self):
@@ -345,7 +392,8 @@ class InferenceEngine:
             slot, logits, batch, b = item
             try:
                 if slot is not None:
-                    slot.done.synchronize()
+                    for event in slot.done:
+                        event.synchronize()
                     logits = slot.host_out[: len(batch)].numpy().copy()
             except Exception as e:
                 for _, fut, _ in batch:

@@ -26,8 +26,16 @@ clones the caller's trees, the best trees and the trees it returns (where
 the JAX package copies them to keep donated buffers alive,
 quantnet/train/trainer.py:354-357,605-607,617-623). Training checkpoints
 are the port's own format (train/checkpoint.py::save); the JAX package's
-orbax checkpoints are not read. Several processes wait for ROADMAP Queue 1
-item 3.
+orbax checkpoints are not read.
+
+Over several processes the Trainer takes a process mesh
+(parallel/mesh.py::make_mesh), as the JAX Trainer takes a mesh
+(quantnet/train/trainer.py:288-347, 386-430, 505-545): rank 0's params are
+broadcast; each rank keeps its contiguous, wrap-padded slice of each split
+on the host and takes the JAX shard-local shuffle's rows of it every step
+(parallel/steps.py); the steps are the data-parallel ones; evaluation masks
+the wrap-padded rows and sums the counts across ranks. Only rank 0 logs and
+writes checkpoints. Several processes without a mesh raise.
 """
 from __future__ import annotations
 
@@ -329,8 +337,9 @@ def eval_step(apply_fn, params, state, images, labels, valid):
 
 class Trainer:
     """Epochs, evaluation, the plateau lr and best-accuracy checkpoints
-    (quantnet/train/trainer.py:228-661), in one process. Each train() draws
-    from a generator on `device` seeded cfg.seed."""
+    (quantnet/train/trainer.py:228-661). Each train() draws from a generator
+    on `device` seeded cfg.seed. With a `mesh` (a process mesh, or one
+    device) the Trainer runs data-parallel on the mesh's device."""
 
     def __init__(
         self,
@@ -344,11 +353,30 @@ class Trainer:
         augment: bool = True,
         log: Optional[Callable[[str], None]] = print,
         device="cuda",
+        mesh=None,
     ):
+        from quantnet_torch.parallel import mesh as meshlib
+        from quantnet_torch.parallel.steps import check_step_mesh
+
         self.apply_fn = apply_fn
         self.cfg = cfg
         self.train_data, self.test_data = train_data, test_data
         self.augment = augment
+        self.mesh = mesh
+        if mesh is None and meshlib.process_count() > 1:
+            raise ValueError("several processes need a mesh (Trainer(..., mesh=make_mesh()))")
+        if mesh is not None:
+            check_step_mesh(mesh)
+            if cfg.batch_size % mesh.size:
+                raise ValueError(f"batch_size {cfg.batch_size} must divide across the data axis "
+                                 f"({mesh.size})")
+            device = mesh.device
+            if mesh.kind == "processes":
+                params, state = meshlib.replicate(mesh, params), meshlib.replicate(mesh, state)
+            self._slices: dict = {}
+        self.rank0 = mesh is None or mesh.rank == 0
+        if log is print and not self.rank0:
+            log = None  # rank 0 logs
         self.device = resolve_device(device)
         self.log = log or (lambda s: None)
         steps_per_epoch = max(len(train_data) // cfg.batch_size, 1)
@@ -370,23 +398,68 @@ class Trainer:
                 torch.from_numpy(labels).to(self.device, torch.int64))
 
     def _step(self, generator, images, labels):
+        from quantnet_torch.parallel import steps
+
         cfg = self.cfg
-        self.state, loss, acc = train_step(
-            self.apply_fn, self.opt, self.params, self.state, self.opt_state, self.leaves,
-            generator, images, labels, label_smoothing=cfg.label_smoothing, augment=self.augment,
-            rotation_deg=cfg.aug_rotation_deg, color_jitter=cfg.aug_color_jitter,
-        )
+        kw = dict(label_smoothing=cfg.label_smoothing, augment=self.augment,
+                  rotation_deg=cfg.aug_rotation_deg, color_jitter=cfg.aug_color_jitter)
+        args = (self.apply_fn, self.opt, self.params, self.state, self.opt_state, self.leaves,
+                generator, images, labels)
+        if self.mesh is None:
+            self.state, loss, acc = train_step(*args, **kw)
+        else:
+            self.state, loss, acc = steps.train_step(self.mesh, *args, **kw)
         return loss, acc
 
+    def _slice(self, dataset: Dataset):
+        """(images, labels, rows per shard) of this rank's slice of a split,
+        made once."""
+        from quantnet_torch.parallel.steps import resident_rows
+
+        key = id(dataset)
+        if key not in self._slices:
+            idx, rows = resident_rows(len(dataset), self.mesh.size, self.mesh.rank)
+            self._slices[key] = (dataset.take(idx), dataset.labels[idx], rows)
+        return self._slices[key]
+
     def _epoch_batches(self, epoch: int):
-        """(images, labels) on the device for one training epoch."""
+        """(images, labels) on the device for one training epoch: this
+        rank's rows of each global batch under a mesh."""
+        if self.mesh is not None:
+            from quantnet_torch.parallel.steps import train_selection
+
+            images, labels, rows = self._slice(self.train_data)
+            lbs = self.cfg.batch_size // self.mesh.size
+            for sel in train_selection(rows, self.mesh.size, lbs, self.cfg.seed, epoch):
+                mine = sel[self.mesh.rank * lbs:(self.mesh.rank + 1) * lbs]
+                yield self._to_device(images[mine], labels[mine])
+            return
         for images, labels in self.train_data.batches(self.cfg.batch_size, shuffle=True,
                                                       seed=self.cfg.seed + epoch, drop_remainder=True):
             yield self._to_device(images, labels)
 
+    def _evaluate_sharded(self) -> Tuple[float, float]:
+        from quantnet_torch.parallel.steps import eval_selection, eval_step
+
+        images, labels, rows = self._slice(self.test_data)
+        lbs = self.cfg.batch_size // self.mesh.size
+        r = self.mesh.rank
+        total_loss = total_top1 = seen = 0.0
+        for sel, valid in eval_selection(rows, self.mesh.size, lbs, len(self.test_data)):
+            mine = sel[r * lbs:(r + 1) * lbs]
+            x, y = self._to_device(images[mine], labels[mine])
+            v = torch.from_numpy(valid[r * lbs:(r + 1) * lbs] > 0).to(self.device)
+            out = eval_step(self.mesh, self.apply_fn, self.params, self.state, x, y, v)
+            total_loss += out["loss_sum"]
+            total_top1 += out["top1"]
+            seen += out["n"]
+        return total_loss / max(seen, 1), total_top1 / max(seen, 1)
+
     def evaluate(self) -> Tuple[float, float]:
         """(test loss, top-1) over the whole test split; the last batch is
         padded to the full batch by wrapping, its padding masked out."""
+        if self.mesh is not None:
+            return self._evaluate_sharded()
         total_loss = total_top1 = 0.0
         n, seen, bs = len(self.test_data), 0, self.cfg.batch_size
         for images, labels in self.test_data.batches(bs, pad_remainder=True):
@@ -452,7 +525,7 @@ class Trainer:
             if test_acc > self.best_accuracy:
                 self.best_accuracy = test_acc
                 self.best = (clone_tree(self.params), clone_tree(self.state))
-                if save_path:
+                if save_path and self.rank0:
                     self.save_checkpoint(save_path, epoch)
         if reload_best and self.best is not None:
             # The optimizer's state carries over, as in the JAX package.

@@ -139,9 +139,11 @@ def test_unknown_model_and_missing_subset_fail(pipeline):
 
 
 def test_unported_schemes_and_flags_refused(pipeline, tmp_path, capsys):
-    """What only the JAX package does yet is refused by name: the commands
-    that report (and experiment, which reports), ImageNet data, several cards
-    and the s4 runtime. train and qat are ported (tests/test_torch_cli_train.py).
+    """What only the JAX package does yet is refused by name: ImageNet data
+    and the s4 runtime. train and qat are ported (tests/test_torch_cli_train.py);
+    report, scaling, experiment and serve --data-parallel too
+    (tests/test_torch_report.py, tests/test_torch_serve_dp.py): a mesh
+    larger than the local devices raises, as the JAX package's does.
     The artifacts those commands write are not refused: evaluate, bench and
     serve load them (test_optimized_and_qat_artifacts_load). The optimized
     scheme and the accuracy tools' flags are ported
@@ -158,12 +160,12 @@ def test_unported_schemes_and_flags_refused(pipeline, tmp_path, capsys):
     assert (defaults.equalize, defaults.adaround_steps, defaults.bias_correct, defaults.int4_guard,
             defaults.importance, defaults.optimized_low_tier) == (False, 0, False, 0.0, None,
                                                                    "weight_only")
-    for argv in (["serve", "--data-parallel", "2"], ["bench", "--s4-runtime"], ["experiment"],
-                 ["report"], ["scaling"]):
-        with pytest.raises(SystemExit) as e:
-            main([*argv, *d])
-        assert e.value.code == 2, argv  # argparse refuses it
+    with pytest.raises(SystemExit) as e:
+        main(["bench", "--s4-runtime", *d])
+    assert e.value.code == 2  # argparse refuses it
     capsys.readouterr()
+    with pytest.raises(ValueError, match=r"mesh 2x1 needs more than 1 devices"):
+        main(["serve", "--data-parallel", "2", *d])
     with pytest.raises(SystemExit, match="Queue 1 item 4"):
         main(["evaluate", "--dataset", "imagenet", *d])
     # An artifact that is not on disk is missing, not unported.
