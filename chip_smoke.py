@@ -99,12 +99,32 @@ one line with its wall time:
                 burst beside the one replica's
  21. scaling    the weak-scaling sweep over the card count (n = 1 here)
  22. cli experiment  python -m quantnet_torch experiment -> report (again,
-                byte for byte) -> scaling in process
- 23. kernels    one JSON line with an entry per kernel and path (K1 on four
-                paths, K1's grouped-K mode, K2, K3, K4), its numbers, its
+                byte for byte) -> scaling in process; then [cli s4]: qat to
+                qat_w4a8 and qat_int4, and bench --s4-runtime with a row for
+                every sub-byte tier
+ 23. s4         (after [accuracy]) the s4 runtime: the W4A8 convnet's 4-bit
+                weights nibble-packed, K1 in its packed-B mode; logits
+                bit-equal to the int8-wide tree's at bs1024 and bs1, the
+                payloads' device bytes, p50 beside the int8-wide tree's;
+                weight_only_int4 at bs32; the refined W4A8 ResNet-50 with
+                every packed K1 and K3 launch held against its plain version
+                (the s4 convnet's launches are held in [k1 stores], and
+                timed in [times] beside the int8-wide launch)
+ 24. tensor parallel  (after [parallel]) two spawned ranks as a 1x2 mesh
+                sharing the card over gloo: fc1 split by columns, fc2 by rows;
+                the static and dynamic convnet bit-equal to one process's,
+                W4A8 within its bound, the all-reduces' and the row
+                epilogue's time per forward; an fp32 train step at bs256
+                against one process's
+ 25. dryrun multichip  quantnet_torch.entry.dryrun_multichip(4): a 2x2 mesh
+                of four ranks on the one card, the JAX line's keys checked
+ 26. kernels    one JSON line with an entry per kernel and path (K1 on four
+                paths, K1's grouped-K mode and its packed-B mode, normal and
+                grouped, K2, K3, K4), its numbers, its
                 launches through the serving engine, counted in device traces,
                 the [accuracy] runs' launches, the baked QAT trees' ones and
-                the data-parallel paths' (K1 on the static convnet)
+                the data-parallel and tensor-parallel paths' (K1 on the
+                static convnet)
 Any failed check raises before the last line, which is the only place that
 prints {"ok": true, ...}. Nothing is written outside build/ (gitignored).
 """
@@ -369,7 +389,7 @@ def build_phase():
 
     t0 = time.perf_counter()
     libs = _build.build()
-    check(set(libs) == set(_build.SIGNATURES), f"built {sorted(libs)}")
+    check(set(libs) == set(_build.LIBRARIES), f"built {sorted(libs)}")
     for name, log in _build.build_log.items():
         for line in log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
@@ -746,6 +766,20 @@ def _time_k1_grouped(torch, a, b, epi, iters):
     return ms, unfused_ms, plain
 
 
+def _time_k1_packed(torch, a, b, epi, iters):
+    """(kernel, int8-wide launch, plain) ms of one launch of K1's packed-B
+    mode: the packed launch; the same launch on the widened weight (the
+    yardstick); the plain version."""
+    from quantnet_torch.core.types import unpack_nibbles
+    from quantnet_torch.ops.int8_matmul import int8_gemm_epilogue, int8_gemm_epilogue_plain
+
+    wide = unpack_nibbles(b)
+    ms = time_ms(lambda: int8_gemm_epilogue(a, b, epi), iters)
+    wide_ms = time_ms(lambda: int8_gemm_epilogue(a, wide, epi), iters)
+    plain = time_ms(lambda: int8_gemm_epilogue_plain(a, b, epi), max(iters // 4, 3))
+    return ms, wide_ms, plain
+
+
 def _k1_fused_bytes(a, b, epi) -> int:
     """A and B read once, the per-column (and per-row, and the grouped
     mode's per-group) vectors read once, the output written once in its own
@@ -912,6 +946,21 @@ def times_phase(torch, dev, k1_calls, dw_calls, models):
                   f"{bound(nbytes, ops)[0]:.4f} ms ({bound(nbytes, ops)[1]}), unfused route "
                   f"{unfused:.4f} ms, plain {plain:.4f} ms")
             _add(k1g if grouped else k1[path], count, ms, plain, nbytes, ops, unfused)
+    # K1's packed-B mode at the W4A8 convnet's shapes under the s4 runtime,
+    # at bs1024 and at bs1 (the first row of each call); the bound counts the
+    # packed weight's bytes; library_ms holds the int8-wide launch's ms.
+    k1p = {key: _sums() for key in ("normal", "grouped", "normal_bs1", "grouped_bs1")}
+    for (m, k, n, store), (count, a, b, epi) in sorted(k1_calls["convnet_w4a8_s4"].items()):
+        check(b.dtype == torch.uint8, f"[times] the s4 tree's K1 call {m}x{k}x{n} got {b.dtype}")
+        kind = "grouped" if epi.group is not None else "normal"
+        for rows, key in ((m, kind), (1, f"{kind}_bs1")):
+            aa = a[:rows].contiguous()
+            ms, wide_ms, plain = _time_k1_packed(torch, aa, b, epi, 20)
+            nbytes, ops = _k1_fused_bytes(aa, b, epi), 2 * rows * n * k
+            print(f"  int8_gemm packed {store} {rows}x{k}x{n} x{count}: kernel {ms:.4f} ms, bound "
+                  f"{bound(nbytes, ops)[0]:.4f} ms ({bound(nbytes, ops)[1]}, packed weight "
+                  f"{b.numel()} bytes), int8-wide launch {wide_ms:.4f} ms, plain {plain:.4f} ms")
+            _add(k1p[key], count, ms, plain, nbytes, ops, wide_ms)
     own = k2_operands(torch, models["convnet"])
     k2_shapes = FC_SHAPES + [("mobilenetv2_fc", MNV2_BATCH, 1280, 1000, "bfloat16")]
     k2_mnv2 = _sums()
@@ -959,7 +1008,9 @@ def times_phase(torch, dev, k1_calls, dw_calls, models):
         f"{k2[bt]['bound_ms']:.4f}, plain {k2[bt]['plain_ms']:.4f})" for bt in FC_BATCHES)
     phase("times", t0, f"per forward: {per_path}; int8_gemm grouped (W4A8 convnet) {k1g['ms']:.4f} ms "
           f"(bound {k1g['bound_ms']:.4f}, unfused route {k1g['library_ms']:.4f}, plain "
-          f"{k1g['plain_ms']:.4f}); {per_batch}; fused_dynamic_gemm mobilenetv2 fc "
+          f"{k1g['plain_ms']:.4f}); int8_gemm packed (W4A8 convnet, s4) " + ", ".join(
+              f"{key} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}, int8-wide {v['library_ms']:.4f})"
+              for key, v in k1p.items()) + f"; {per_batch}; fused_dynamic_gemm mobilenetv2 fc "
           f"{k2_mnv2['ms']:.4f} ms (bound {k2_mnv2['bound_ms']:.4f}); residual_boundary "
           f"{k3['ms']:.4f} ms (bound {k3['bound_ms']:.4f}, plain {k3['plain_ms']:.4f}); "
           f"depthwise_conv mobilenetv2 {k4['ms']:.4f} ms of device time (bound {k4['bound_ms']:.4f}, "
@@ -984,7 +1035,7 @@ def times_phase(torch, dev, k1_calls, dw_calls, models):
                     library_nhwc_f32_ms=k4_lib["nhwc_f32"], library_nhwc_bf16_ms=k4_lib["nhwc_bf16"],
                     dynamic_ms=k4_dyn["ms"], dynamic_bound_ms=k4_dyn["bound_ms"],
                     dynamic_plain_ms=k4_dyn["plain_ms"])
-    return k1_int32, k1, k1g, k2_entry, k3, k4_entry
+    return k1_int32, k1, k1g, k2_entry, k3, k4_entry, k1p
 
 
 def build_models(torch, dev):
@@ -1001,6 +1052,7 @@ def build_models(torch, dev):
     from quantnet_torch.entry import mobilenet_entry, resnet_entry, static_entry
     from quantnet_torch.models import convnet, mobilenet, resnet
     from quantnet_torch.quantize import dynamic, fold, static
+    from quantnet_torch.quantize.common import s4_runtime_tree
 
     t0 = time.perf_counter()
     params, state = convnet.init(torch.Generator().manual_seed(SEED), device=dev)
@@ -1032,6 +1084,9 @@ def build_models(torch, dev):
                           weight_group_size=W4A8_GROUP)
     models["convnet_w4a8"] = dict(apply=convnet.apply, params=cp, state=cs, q=wq, qs=wqs,
                                   x=models["convnet_static"]["x"])
+    # The same W4A8 tree under the s4 runtime: its 4-bit weights nibble-packed,
+    # K1 in its packed-B mode (normal at the convs, grouped at fc1 and fc2).
+    models["convnet_w4a8_s4"] = dict(models["convnet_w4a8"], q=s4_runtime_tree(wq))
     # MobileNetV2 1.0 at 224x224, bs256: static INT8 (int8 stem) and dynamic.
     t2 = time.perf_counter()
     for name, scheme in (("mobilenetv2", "static"), ("mobilenetv2_dynamic", "dynamic")):
@@ -1051,7 +1106,7 @@ def build_models(torch, dev):
                                      skip_first_layer=False)
         models[name] = dict(apply=resnet.apply, q=q, qs=qs, x=x)
     torch.cuda.synchronize()
-    phase("models", t0, f"convnet, convnet_static and convnet_w4a8 bs{BATCH}, resnet50 bs{RESNET_BATCH} "
+    phase("models", t0, f"convnet, convnet_static and convnet_w4a8 (int8-wide and s4) bs{BATCH}, resnet50 bs{RESNET_BATCH} "
           f"{RESNET_IMAGE}x{RESNET_IMAGE} (set-up {models['resnet50']['set_up_s']:.2f} s) with the 7x7 "
           f"and the s2d int8 stem, mobilenetv2 static and dynamic bs{MNV2_BATCH} {MNV2_IMAGE}x"
           f"{MNV2_IMAGE} (set-up {models['mobilenetv2']['set_up_s']:.2f} s)")
@@ -1585,6 +1640,26 @@ def _load_line(kind, n, seconds, lat, stats, occ) -> str:
             f"/ p99 {lat['p99_ms']:.4f} ms, {int(stats['batches'])} batches, occupancy {occ:.4f}")
 
 
+TRACE_TRIES = 3
+
+
+def _traced(fn, retraced: list):
+    """bench/trace.py's trace(fn), taken again (up to TRACE_TRIES times in
+    all) where the profiler recorded no device activity at all: a trace
+    that lost every record is a failure of the instrument, not of the path
+    (on an H100 CUPTI has dropped 10 of a replay's 53 records, and once
+    every record of one replay). A trace with any device row is read as it
+    is. Appends the retakes to `retraced`; returns (fn's result,
+    the profile)."""
+    from quantnet_torch.bench.trace import device_rows, trace
+
+    for i in range(TRACE_TRIES):
+        out, prof = trace(fn)
+        if device_rows(prof) or i == TRACE_TRIES - 1:
+            retraced.append(i)
+            return out, prof
+
+
 def serve_phase(torch, dev, models):
     """Each path served by the continuous-batching engine through its CUDA
     graphs: every bucket's replay bit-equal to an eager forward of the same
@@ -1596,7 +1671,7 @@ def serve_phase(torch, dev, models):
     images at the largest bucket."""
     import numpy as np
 
-    from quantnet_torch.bench.trace import kernel_launches, trace
+    from quantnet_torch.bench.trace import kernel_launches
     from quantnet_torch.ops.depthwise_conv import depthwise_conv
     from quantnet_torch.ops.fused_dynamic_matmul import fused_dynamic_gemm
     from quantnet_torch.ops.int8_matmul import int8_gemm
@@ -1604,6 +1679,7 @@ def serve_phase(torch, dev, models):
     from quantnet_torch.serve import InferenceEngine
 
     wrappers = (int8_gemm, fused_dynamic_gemm, residual_boundary, depthwise_conv)
+    retraced = []
 
     def counted(fn):
         """The wrappers' launch counts over fn(), from 0."""
@@ -1630,7 +1706,7 @@ def serve_phase(torch, dev, models):
                 check(torch.equal(got, want), f"[serve] {path} bucket {b}: replay vs eager forward "
                       f"max |diff| {err}, not bit-equal")
                 eager = counted(lambda: eng.forward(x))
-                _, prof = trace(lambda: eng.replay(x))
+                _, prof = _traced(lambda: eng.replay(x), retraced)
                 per_replay = kernel_launches(prof)
                 check(per_replay == eager and any(eager.values()),
                       f"[serve] {path} bucket {b}: one replay launched {per_replay} in its trace, "
@@ -1647,7 +1723,7 @@ def serve_phase(torch, dev, models):
             check(not any(called.values()), f"[serve] {path}: the wrappers launched {called} during "
                   "the loads: a batch ran outside its graph")
             # The same loads again under a device trace, for the launches.
-            traced_runs, prof = trace(lambda: _serve_loads(eng, loads, wait_ms))
+            traced_runs, prof = _traced(lambda: _serve_loads(eng, loads, wait_ms), retraced)
             launches = kernel_launches(prof)
             batches = sum(r[3]["batches"] for r in traced_runs.values())
             want = {k: n * batches for k, n in per_forward.items()}
@@ -1682,7 +1758,8 @@ def serve_phase(torch, dev, models):
         phase("serve", t0, f"{path} {image}x{image} u8 wire, buckets {buckets}: captured in "
               f"{capture_s:.2f} s, every bucket's replay bit-equal to the eager forward and "
               f"launching its kernels in a trace; no wrapper called during the loads; traced loads "
-              f"launched {launches} in {batches} batches ({per_forward} a replay); " + "; ".join(lines))
+              f"launched {launches} in {batches} batches ({per_forward} a replay); traces retaken "
+              f"for an empty record so far: {sum(retraced)}; " + "; ".join(lines))
     return out
 
 
@@ -1837,6 +1914,7 @@ def accuracy_phase(torch, dev, models):
     run = dict(apply=resnet.apply, params=params, state=state, q=cq, qs=cqs, x=x)
     _, out["refined"], msg = _path_run(torch, "accuracy resnet50", run, want, W4A8_RESNET_REL_L2_MAX,
                                        1000)
+    out["refined_tree"] = (cq, cqs, x)
     phase("accuracy resnet50", t0, f"equalize {equalize_s:.3f} s (rel L2 {eq_rel:.3g} to the "
           f"fold); int4 guard on 2 batches of {ACCURACY_BATCH} {guard_s:.3f} s, guard "
           f"{sorted(guard)} as the plain run's; W4A8: AdaRound {ADAROUND_STEPS} steps on "
@@ -2825,12 +2903,13 @@ def _parallel_rank(rank: int, world: int, port: int) -> dict:
     return out
 
 
-def _parallel_worker(rank, world, port, results):
-    """A spawned rank: its result, or its traceback, onto `results`."""
+def _parallel_worker(rank, world, port, results, target):
+    """A spawned rank: its result of target(rank, world, port), or its
+    traceback, onto `results`."""
     import traceback
 
     try:
-        results.put((rank, True, _parallel_rank(rank, world, port)))
+        results.put((rank, True, target(rank, world, port)))
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
         raise
@@ -2848,36 +2927,8 @@ def parallel_phase(torch, card) -> dict:
     """[parallel]: two ranks spawned, sharing the card over gloo (the
     backend printed by each); a failed rank, check or collective, or a rank
     that outlives PARALLEL_TIMEOUT_S, fails the phase."""
-    import multiprocessing as mp
-    import queue
-
     t0 = time.perf_counter()
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=_parallel_worker, args=(r, PARALLEL_RANKS, port, results))
-             for r in range(PARALLEL_RANKS)]
-    for p in procs:
-        p.start()
-    got = {}
-    try:
-        deadline = time.monotonic() + PARALLEL_TIMEOUT_S
-        while len(got) < PARALLEL_RANKS:
-            try:
-                rank, ok, payload = results.get(timeout=max(deadline - time.monotonic(), 1.0))
-            except queue.Empty:
-                raise SmokeFailure(f"[parallel] no result from ranks "
-                                   f"{sorted(set(range(PARALLEL_RANKS)) - set(got))} in "
-                                   f"{PARALLEL_TIMEOUT_S} s") from None
-            check(ok, f"[parallel] rank {rank} failed:\n{payload}")
-            got[rank] = payload
-    finally:
-        for p in procs:
-            p.join(timeout=30)
-            if p.is_alive():
-                p.terminate()
-                p.join()
-    check(all(p.exitcode == 0 for p in procs), f"[parallel] exit codes {[p.exitcode for p in procs]}")
+    got = _spawn_ranks(torch, "parallel", _parallel_rank, PARALLEL_RANKS)
     r0, r1 = got[0], got[1]
     check(r0["backend"] == r1["backend"] == "gloo", f"[parallel] backends {r0['backend']}, {r1['backend']}")
     check(r0["eval"] == r1["eval"] == r0["eval_one"],
@@ -2926,7 +2977,7 @@ def serve_dp_phase(torch, dev, models, card) -> dict:
     replica's bits; trickle p50 / p99 and burst req/s of both."""
     import numpy as np
 
-    from quantnet_torch.bench.trace import kernel_launches, trace
+    from quantnet_torch.bench.trace import kernel_launches
     from quantnet_torch.parallel.mesh import make_mesh
     from quantnet_torch.serve import InferenceEngine
 
@@ -2950,7 +3001,7 @@ def serve_dp_phase(torch, dev, models, card) -> dict:
                 check(torch.equal(got, eng.forward(probes[b])),
                       f"[serve dp] {label} bucket {b}: replay vs eager forward not bit-equal")
                 replays[b] = got
-            _, prof = trace(lambda: eng.replay(probes[eng.buckets[-1]]))
+            _, prof = _traced(lambda: eng.replay(probes[eng.buckets[-1]]), [])
             runs[label] = dict(buckets=eng.buckets, replays=replays, launches=kernel_launches(prof),
                                loads=_serve_loads(eng, loads, 2.0))
     one, two = runs["one replica"], runs["two shards"]
@@ -2991,6 +3042,380 @@ def scaling_phase(torch, dev, models, card) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The s4 runtime, the model axis and the multi-rank dry run
+# ---------------------------------------------------------------------------
+
+# [s4]: the W4A8 convnet under the s4 runtime at these batches, held
+# against its int8-wide tree; weight_only_int4 at S4_WEIGHT_ONLY_BATCH.
+S4_BATCHES = (BATCH, 1)
+S4_WEIGHT_ONLY_BATCH = 32
+# [tensor parallel]: two ranks as a (data 1 x model 2) mesh sharing the card
+# over gloo; the convnet trees at TP_BATCH, one fp32 train step at
+# TP_TRAIN_BATCH. W4A8's fc2 row shard folds its four groups as
+# (g0 + g1) + (g2 + g3) against the one process's ((g0 + g1) + g2) + g3:
+# within TP_W4A8_REL of max|logit| (the CPU test holds 1e-5 too).
+TP_RANKS = 2
+TP_BATCH = 1024
+TP_TRAIN_BATCH = 256
+TP_W4A8_REL = 1e-5
+# [dryrun multichip]: dryrun_multichip(4), a (data 2 x model 2) mesh of four
+# ranks on the one card; its line carries the JAX line's keys, in order
+# (__graft_entry__.py:170-180), then the scaling field.
+DRYRUN_DEVICES = 4
+DRYRUN_KEYS = ("mesh", "loss", "int8_eval_top1", "w4a8_eval_top1", "qat_w4_step_loss",
+               "qat_w4_eval_top1", "mobilenet_int8_eval_top1", "serve_reqs", "occupancy",
+               "scaling_harness")
+# [cli s4]: the sub-byte tiers `bench --s4-runtime` must report.
+SUB_BYTE_TIERS = ("weight_only_int4", "w4a8", "qat_int4", "qat_w4a8")
+
+
+def _device_bytes(torch, tree) -> int:
+    """The bytes of a tree's distinct tensors on the device: QTensor
+    payloads, scales and cached transposes, the GEMM constants, the rest."""
+    import dataclasses
+
+    seen = {}
+
+    def walk(node):
+        if isinstance(node, torch.Tensor):
+            seen[node.data_ptr()] = max(seen.get(node.data_ptr(), 0), node.numel() * node.element_size())
+        elif isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif dataclasses.is_dataclass(node) and not isinstance(node, type):
+            for f in dataclasses.fields(node):
+                walk(getattr(node, f.name))
+
+    walk(tree)
+    return sum(seen.values())
+
+
+def _four_bit_payload_bytes(tree) -> int:
+    """The bytes of the 4-bit weights' payloads of a tree, on the device."""
+    from quantnet_torch.core.types import QTensor
+    from quantnet_torch.quantize.common import walk_layers
+
+    total = []
+
+    def count(path, layer):
+        w = layer["w"]
+        if isinstance(w, QTensor) and w.bits == 4:
+            total.append(w.values.numel() * w.values.element_size())
+        return layer
+
+    walk_layers(tree, count)
+    return sum(total)
+
+
+def s4_phase(torch, dev, models, refined, card) -> dict:
+    """[s4]: the W4A8 convnet's s4 tree at bs1024 and bs1 (logits bit-equal
+    to the int8-wide tree's, every K1 launch packed; its launches are held
+    against the plain version in [k1 stores]), the 4-bit payloads' device
+    bytes, p50 beside the int8-wide tree's; weight_only_int4 at bs32; the
+    refined W4A8 ResNet-50 of [accuracy] under the s4 runtime, every K1 and
+    K3 launch held against its plain version."""
+    from quantnet_torch.bench.benchmark import InferenceBenchmark
+    from quantnet_torch.models import convnet, resnet
+    from quantnet_torch.ops.int8_matmul import int8_gemm
+    from quantnet_torch.quantize import weight_only
+    from quantnet_torch.quantize.common import s4_runtime_tree
+
+    t0 = time.perf_counter()
+    wide, s4 = models["convnet_w4a8"], models["convnet_w4a8_s4"]
+    out, parts = {}, []
+    for bs in S4_BATCHES:
+        x = wide["x"][:bs]
+        torch.cuda.synchronize()
+        _zero_launch_counts()
+        int8_gemm.packed_launches = 0
+        got = convnet.apply(s4["q"], s4["qs"], x)[0]
+        torch.cuda.synchronize()
+        counts, packed = _launch_counts(), int8_gemm.packed_launches
+        want = convnet.apply(wide["q"], wide["qs"], x)[0]
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"[s4] W4A8 convnet bs{bs}: s4 logits differ from the int8-wide tree's, max |diff| "
+              f"{(got - want).abs().max().item()!r}")
+        check(packed == counts["int8_gemm"] == 7 and counts["int8_gemm_grouped"] == 2,
+              f"[s4] bs{bs}: {packed} packed K1 launches of {counts}")
+        if bs == BATCH:
+            out["launches"] = {"normal": packed - counts["int8_gemm_grouped"],
+                               "grouped": counts["int8_gemm_grouped"]}
+        bench = InferenceBenchmark(warmup=10, iters=50)
+        p50 = {k: bench.measure(convnet.apply, m["q"], m["qs"], bs)["p50_ms"]
+               for k, m in (("s4", s4), ("int8-wide", wide))}
+        out[f"p50_bs{bs}"] = p50
+        parts.append(f"bs{bs}: logits bit-equal, {packed} packed K1 launches ({counts['int8_gemm_grouped']} "
+                     f"grouped), p50 {p50['s4']:.4f} ms against the int8-wide tree's "
+                     f"{p50['int8-wide']:.4f} ms")
+    payload = {k: _four_bit_payload_bytes(m["q"]) for k, m in (("int8-wide", wide), ("s4", s4))}
+    tree = {k: _device_bytes(torch, m["q"]) for k, m in (("int8-wide", wide), ("s4", s4))}
+    out["payload_bytes"], out["tree_bytes"] = payload, tree
+    check(2 * payload["s4"] <= payload["int8-wide"] + 16 * 7 * 512,
+          f"[s4] 4-bit payloads {payload}: not halved")
+
+    wq, wqs = weight_only.quantize(wide["params"], wide["state"], bits=4, group_size=128)
+    x = wide["x"][:S4_WEIGHT_ONLY_BATCH]
+    got = convnet.apply(s4_runtime_tree(wq), wqs, x)[0]
+    want = convnet.apply(wq, wqs, x)[0]
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          f"[s4] weight_only_int4 bs{S4_WEIGHT_ONLY_BATCH}: s4 logits differ, max |diff| "
+          f"{(got - want).abs().max().item()!r}")
+
+    rq, rqs, x = refined
+    want = resnet.apply(rq, rqs, x)[0]
+    with held_launches(torch) as rec:
+        got = resnet.apply(s4_runtime_tree(rq), rqs, x)[0]
+    counts = held_counts(rec)
+    wides = [k for k, c in rec["calls"]["int8_gemm"].items() if c[2].dtype != torch.uint8]
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          f"[s4] refined W4A8 ResNet-50: s4 logits differ, max |diff| {(got - want).abs().max().item()!r}")
+    check(counts["int8_gemm"] == 53 and counts["residual_boundary"] == 15 and not wides,
+          f"[s4] refined W4A8 ResNet-50: launches {counts}, int8-wide K1 calls {wides}")
+    out["resnet50_launches"] = counts
+    phase("s4", t0, f"{card}; W4A8 convnet: " + "; ".join(parts) + f"; 4-bit payloads on the device "
+          f"{payload['int8-wide']} bytes int8-wide, {payload['s4']} packed (the tree with its GEMM "
+          f"constants {tree['int8-wide']} and {tree['s4']}); weight_only_int4 bs{S4_WEIGHT_ONLY_BATCH} "
+          f"logits bit-equal; refined W4A8 ResNet-50 bs{RESNET_BATCH}: logits bit-equal, "
+          f"{counts['int8_gemm']} K1 launches, all packed ({counts['int8_gemm_grouped']} grouped), "
+          f"and {counts['residual_boundary']} K3, each bit-equal to its plain version")
+    return out
+
+
+def _tp_rank(rank: int, world: int, port: int) -> dict:
+    """One rank of [tensor parallel]: the convnet's static, dynamic (K2 at
+    fc1's column shard, the row-shard route at fc2; and the per-row route)
+    and W4A8 trees sharded over the model axis against this process's
+    unsharded forward; one fp32 train step against one process's (rank 0)."""
+    import hashlib
+
+    from quantnet_torch.core.config import Flags, TrainConfig
+    from quantnet_torch.entry import static_entry
+    from quantnet_torch.models import convnet
+    from quantnet_torch.ops import linear as ops_linear
+    from quantnet_torch.ops.int8_matmul import int8_gemm
+    from quantnet_torch.parallel import mesh as meshlib
+    from quantnet_torch.parallel import steps, tensor
+    from quantnet_torch.quantize import dynamic, fold, static
+    from quantnet_torch.train import trainer as tr
+
+    import torch
+
+    dev = meshlib.init_distributed(f"127.0.0.1:{port}", world, rank, device="cuda")
+    mesh = meshlib.make_mesh(1, world)
+    out = {"backend": mesh.backend, "device": str(dev), "shape": mesh.shape, "forwards": {}}
+    _, (sq, sqs, x) = static_entry(dev, batch_size=TP_BATCH, calibration_size=RESNET_CALIBRATION,
+                                   seed=SEED)
+    params, state = convnet.init(torch.Generator().manual_seed(SEED), device=dev)
+    dq, dqs = dynamic.quantize(params, state)
+    fparams, fstate = fold.fold_model(params, state)
+    calib = torch.randn((RESNET_CALIBRATION, 32, 32, 3),
+                        generator=torch.Generator().manual_seed(SEED + 1)).to(dev)
+    act = static.calibrate(convnet.apply, fparams, fstate, [calib], cross_process=False)
+    wq, wqs = static.bake(fparams, fstate, act, skip_first_layer=True, weight_bits=4,
+                          weight_group_size=W4A8_GROUP)
+    per_row = Flags(dynamic_linear="unfused")
+    epilogues = []
+    row_epilogue, all_reduce, all_gather = ops_linear.row_epilogue, tensor.all_reduce, meshlib.all_gather
+
+    def captured(acc, epi):
+        epilogues.append((acc, epi))
+        return row_epilogue(acc, epi)
+
+    def synced(fn):
+        """A collective that first waits for the card, so that its host
+        time is the collective's own and not the forward's before it."""
+        def call(*args, **kw):
+            _sync(torch, dev)
+            return fn(*args, **kw)
+        return call
+
+    def timed(fn):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(torch, dev)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    for name, q, qs, flags in (("static", sq, sqs, Flags()), ("dynamic", dq, dqs, Flags()),
+                               ("dynamic_per_row", dq, dqs, per_row), ("w4a8", wq, wqs, Flags())):
+        sharded = tensor.shard_params(mesh, q, model_parallel=True)
+        st = tensor.shard_params(mesh, qs, model_parallel=True)
+        convnet.apply(sharded, st, x, flags=flags)  # warm-up, both
+        want, one_ms = timed(lambda: convnet.apply(q, qs, x, flags=flags)[0])
+        want, one_ms = timed(lambda: convnet.apply(q, qs, x, flags=flags)[0])
+        _zero_launch_counts()
+        ops_linear.row_epilogue = captured
+        try:
+            got, wall_ms = timed(lambda: convnet.apply(sharded, st, x, flags=flags)[0])
+        finally:
+            ops_linear.row_epilogue = row_epilogue
+        launches = _launch_counts()
+        # Again with each collective waiting for the card first: their own time.
+        c0 = meshlib.collective_seconds[0]
+        tensor.all_reduce, meshlib.all_gather = synced(all_reduce), synced(all_gather)
+        try:
+            timed(lambda: convnet.apply(sharded, st, x, flags=flags))
+        finally:
+            tensor.all_reduce, meshlib.all_gather = all_reduce, all_gather
+        coll = meshlib.collective_seconds[0] - c0
+        # The K2 row route folds its blocks itself; the others end in row_epilogue.
+        epilogue_ms = time_ms(lambda: row_epilogue(*epilogues[-1])) if epilogues else None
+        out["forwards"][name] = dict(
+            bit_equal=torch.equal(got.view(torch.int32), want.view(torch.int32)),
+            rel=((got - want).abs().max() / want.abs().max()).item(), launches=launches,
+            collective_ms=coll * 1e3, wall_ms=wall_ms, one_wall_ms=one_ms,
+            epilogue_ms=epilogue_ms, finite=bool(torch.isfinite(got).all()))
+        epilogues.clear()
+
+    # One fp32 train step at the global batch (the data axis is 1: every
+    # rank holds every row), against one process's on rank 0.
+    g = torch.Generator().manual_seed(SEED + 5)
+    images = torch.randn((TP_TRAIN_BATCH, 32, 32, 3), generator=g).to(dev)
+    labels = torch.randint(0, 10, (TP_TRAIN_BATCH,), generator=g).to(dev)
+    cfg = TrainConfig(epochs=1, batch_size=TP_TRAIN_BATCH, lr=0.1)
+
+    def step(m):
+        opt = tr.Optimizer(cfg, 10)
+        p = tr.clone_tree(params if m is None else tensor.shard_params(m, params, model_parallel=True),
+                          requires_grad=True)
+        s = state if m is None else tensor.shard_params(m, state, model_parallel=True)
+        leaves = tr.tensor_leaves(p)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        kw = dict(augment=True, rotation_deg=15.0, color_jitter=0.2)
+        if m is None:
+            ns, loss, _ = tr.train_step(convnet.apply, opt, p, s, opt.init(leaves), leaves, gen,
+                                        images, labels, **kw)
+            return tr.clone_tree(p), ns, float(loss), None
+        ns, loss, _ = steps.train_step(m, convnet.apply, opt, p, s, opt.init(leaves), leaves, gen,
+                                       images, labels, **kw)
+        rep = [t for t, sp in zip(leaves, tensor.sharded_leaves(p, True)) if not sp]
+        digest = hashlib.sha256(b"".join(t.detach().cpu().numpy().tobytes() for t in rep)).hexdigest()
+        return (tr.clone_tree(tensor.gather_params(m, p)), tensor.gather_params(m, ns), float(loss),
+                digest)
+
+    tp = step(mesh)
+    digests = meshlib.gather_objects(tp[3])
+    if rank == 0:
+        sp = step(None)
+        out["step"] = dict(
+            ranks_identical=len(set(digests)) == 1, loss=tp[2], loss_one=sp[2],
+            loss_rel=abs(tp[2] - sp[2]) / abs(sp[2]),
+            leaves=_leaf_excess(torch, {"p": tp[0], "s": tp[1]}, {"p": sp[0], "s": sp[1]},
+                                _parallel_bounds))
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def _spawn_ranks(torch, label: str, target, world: int) -> dict:
+    """`world` spawned ranks running target(rank, world, port); a failed
+    rank, or one that outlives PARALLEL_TIMEOUT_S, fails the phase. Returns
+    {rank: result}."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_parallel_worker, args=(r, world, port, results, target))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+        while len(got) < world:
+            try:
+                rank, ok, payload = results.get(timeout=max(deadline - time.monotonic(), 1.0))
+            except queue.Empty:
+                raise SmokeFailure(f"[{label}] no result from ranks "
+                                   f"{sorted(set(range(world)) - set(got))} in "
+                                   f"{PARALLEL_TIMEOUT_S} s") from None
+            check(ok, f"[{label}] rank {rank} failed:\n{payload}")
+            got[rank] = payload
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    check(all(p.exitcode == 0 for p in procs), f"[{label}] exit codes {[p.exitcode for p in procs]}")
+    return got
+
+
+def tensor_parallel_phase(torch, card) -> dict:
+    """[tensor parallel]: two spawned ranks as a (data 1 x model 2) mesh,
+    sharing the card over gloo (the backend printed): the static and
+    dynamic convnet's sharded logits bit-equal to one process's (K1 and K2
+    launched on each rank), W4A8 within TP_W4A8_REL; the host time of the
+    all-reduces and of the row shard's epilogue per forward; one fp32 train
+    step at bs256 within [parallel]'s bounds of one process's, the
+    replicated leaves bit-identical on both ranks."""
+    t0 = time.perf_counter()
+    got = _spawn_ranks(torch, "tensor parallel", _tp_rank, TP_RANKS)
+    r0 = got[0]
+    check(all(r["backend"] == "gloo" and r["shape"] == {"data": 1, "model": TP_RANKS}
+              for r in got.values()), f"[tensor parallel] meshes {[(r['backend'], r['shape']) for r in got.values()]}")
+    for rank, r in got.items():
+        for name, f in r["forwards"].items():
+            check(f["finite"], f"[tensor parallel] rank {rank} {name}: non-finite logits")
+            if name == "w4a8":
+                check(f["rel"] <= TP_W4A8_REL, f"[tensor parallel] rank {rank} w4a8: max |diff| "
+                      f"{f['rel']:.3e} x max|logit| > {TP_W4A8_REL}")
+            else:
+                check(f["bit_equal"], f"[tensor parallel] rank {rank} {name}: not bit-equal to one "
+                      f"process's (max |diff| {f['rel']:.3e} x max|logit|)")
+            k1 = f["launches"]["int8_gemm"]
+            check(k1 > 0 and (name != "dynamic" or f["launches"]["fused_dynamic_gemm"] == 1),
+                  f"[tensor parallel] rank {rank} {name}: launches {f['launches']}")
+    st = r0["step"]
+    check(st["ranks_identical"], "[tensor parallel] the replicated leaves differ between the ranks")
+    check(st["loss_rel"] <= PARALLEL_LOSS_REL, f"[tensor parallel] step loss {st['loss']} against one "
+          f"process's {st['loss_one']}: rel {st['loss_rel']:.3e} > {PARALLEL_LOSS_REL}")
+    for group, (excess, leaf) in st["leaves"].items():
+        check(excess <= 1.0, f"[tensor parallel] {group}: {leaf} at {excess:.3f}x its bound")
+    def forward_line(name, f):
+        held = "bit-equal" if f["bit_equal"] else f"max |diff| {f['rel']:.3e} x max|logit|"
+        launches = {k: v for k, v in f["launches"].items() if v}
+        epi = ("the K2 route's own block fold" if f["epilogue_ms"] is None
+               else f"row epilogue {f['epilogue_ms']:.4f} ms")
+        return (f"{name} {held}, launches {launches} per rank, a sharded forward {f['wall_ms']:.3f} ms "
+                f"(one process {f['one_wall_ms']:.3f} ms), its collectives {f['collective_ms']:.3f} ms "
+                f"of host time (each after a sync), {epi}")
+
+    fw = "; ".join(forward_line(n, f) for n, f in r0["forwards"].items())
+    phase("tensor parallel", t0, f"{card}; {TP_RANKS} ranks on {r0['device']} as a 1x{TP_RANKS} mesh, "
+          f"backend {r0['backend']} (ranks share a card); convnet bs{TP_BATCH}, fc1 by columns and fc2 "
+          f"by rows: {fw}; fp32 train step bs{TP_TRAIN_BATCH} (aug + dropout) loss {st['loss']!r} "
+          f"against one process's {st['loss_one']!r} (rel {st['loss_rel']:.3e}), worst leaf against its "
+          f"bound: " + ", ".join(f"{g} {e:.4f} ({leaf})" for g, (e, leaf) in st["leaves"].items())
+          + "; replicated leaves bit-identical on both ranks")
+    return r0
+
+
+def dryrun_phase(torch, card) -> dict:
+    """[dryrun multichip]: quantnet_torch.entry.dryrun_multichip(4) on the
+    one card, its line checked: every key of the JAX line, every request
+    served, the losses finite, the replicated leaves bit-identical on all
+    ranks."""
+    import re
+
+    from quantnet_torch.entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    r = dryrun_multichip(DRYRUN_DEVICES)
+    line = r["line"]
+    keys = tuple(re.findall(r"(\w+)=", line))
+    check(keys == DRYRUN_KEYS, f"[dryrun multichip] keys {keys}")
+    check(r["mesh"] == {"data": DRYRUN_DEVICES // 2, "model": 2}, f"[dryrun multichip] mesh {r['mesh']}")
+    check("serve_reqs=200/200" in line, f"[dryrun multichip] {line}")
+    check(math.isfinite(r["loss"]) and math.isfinite(r["qat_loss"]), f"[dryrun multichip] losses {line}")
+    check(len(set(r["replicated_digests"])) == 1 and len(r["replicated_digests"]) == DRYRUN_DEVICES,
+          "[dryrun multichip] the replicated leaves differ between ranks")
+    phase("dryrun multichip", t0, f"{card}; {line}")
+    return r
+
+
 def cli_experiment_phase(torch, card) -> None:
     """[cli experiment]: python -m quantnet_torch experiment --epochs 1
     --qat-epochs 1 in an empty directory under build/ on 2048 synthetic
@@ -3026,13 +3451,33 @@ def cli_experiment_phase(torch, card) -> None:
         written = json.loads((res / "scaling.json").read_text())
         check(set(written) == {"model", "throughput", "efficiency"} and written["model"] == "static",
               f"[cli experiment] scaling.json {written}")
-    acc, bench = out["accuracy"], out["benchmark"]
-    phase("cli experiment", t0, f"{card}; train (1 epoch, 2048 images) -> quantize all -> qat (1 epoch) "
-          f"-> evaluate -> bench -> report: top-1 fp32 {acc['fp32']['top1']:.4f}, static "
-          f"{acc['static']['top1']:.4f}, qat {acc['qat']['top1']:.4f}; static bs32 "
-          f"{bench['static']['bs32']['images_per_s']:.1f} img/s; the report lists the "
-          f"{len(EXPERIMENT_SCHEMES)} artifacts and a second report ({report_s:.2f} s) wrote the same "
-          f"bytes; scaling {sc['throughput'][1]:.1f} img/s at n=1")
+        acc, bench = out["accuracy"], out["benchmark"]
+        phase("cli experiment", t0, f"{card}; train (1 epoch, 2048 images) -> quantize all -> qat (1 "
+              f"epoch) -> evaluate -> bench -> report: top-1 fp32 {acc['fp32']['top1']:.4f}, static "
+              f"{acc['static']['top1']:.4f}, qat {acc['qat']['top1']:.4f}; static bs32 "
+              f"{bench['static']['bs32']['images_per_s']:.1f} img/s; the report lists the "
+              f"{len(EXPERIMENT_SCHEMES)} artifacts and a second report ({report_s:.2f} s) wrote the "
+              f"same bytes; scaling {sc['throughput'][1]:.1f} img/s at n=1")
+
+        # [cli s4]: the sub-byte QAT tiers on the experiment's artifacts, then
+        # bench over every artifact, int8-wide and with --s4-runtime, in turn.
+        t2 = time.perf_counter()
+        cli(["qat", "--epochs", "1", "--weight-bits", "4", "--init-from", "w4a8", *args])
+        cli(["qat", "--epochs", "1", "--weight-bits", "4", "--weight-only", "--init-from",
+             "weight_only_int4", *args])
+        bench_args = ["--batch-sizes", "1,32", "--warmup", "3", "--iters", "20", *args]
+        wide = cli(["bench", *bench_args])
+        s4 = cli(["bench", "--s4-runtime", *bench_args])
+        rows = json.loads((res / "benchmark.json").read_text())
+        check(all(t in rows and t in s4 for t in SUB_BYTE_TIERS),
+              f"[cli s4] benchmark.json rows {sorted(rows)}")
+        tiers = "; ".join(
+            f"{t} p50 bs1 {s4[t]['bs1']['p50_ms']:.4f} ms, bs32 {s4[t]['bs32']['p50_ms']:.4f} ms "
+            f"(int8-wide {wide[t]['bs1']['p50_ms']:.4f}, {wide[t]['bs32']['p50_ms']:.4f})"
+            for t in SUB_BYTE_TIERS)
+        phase("cli s4", t2, f"{card}; qat --weight-bits 4 --init-from w4a8 -> qat_w4a8, qat --weight-bits "
+              f"4 --weight-only --init-from weight_only_int4 -> qat_int4, bench then bench --s4-runtime: "
+              f"{len(rows)} rows in benchmark.json; {tiers}")
 
 
 def main() -> int:
@@ -3047,7 +3492,7 @@ def main() -> int:
     k1_calls, dw_calls, store_errs = k1_stores_phase(torch, models)
     fused_err = fused_phase(torch, dev)
     boundary_err = boundary_phase(torch, dev)
-    k1_int32, k1, k1g, k2, k3, k4 = times_phase(torch, dev, k1_calls, dw_calls, models)
+    k1_int32, k1, k1g, k2, k3, k4, k1p = times_phase(torch, dev, k1_calls, dw_calls, models)
     del k1_calls, dw_calls
     convnet_launches = main_path_phase(torch, dev, models["convnet"])
     static_launches = static_phase(torch, dev, models["convnet_static"])
@@ -3060,11 +3505,14 @@ def main() -> int:
     serving = serve_phase(torch, dev, models)
     observers_phase(torch, dev, models["resnet50"])
     accuracy = accuracy_phase(torch, dev, models)
+    s4 = s4_phase(torch, dev, models, accuracy.pop("refined_tree"), card)
     cli_phase(torch)
     train_phase(torch, dev, card)
     qat = qat_phase(torch, dev, card)
     cli_train_phase(torch)
     parallel = parallel_phase(torch, card)
+    tp = tensor_parallel_phase(torch, card)
+    dryrun_phase(torch, card)
     serve_dp = serve_dp_phase(torch, dev, models, card)
     scaling_phase(torch, dev, models, card)
     cli_experiment_phase(torch, card)
@@ -3132,6 +3580,22 @@ def main() -> int:
         e.update({key: v for key, v in k4.items() if key not in _sums()})
         return e
 
+    def packed_entry(kind):
+        """K1's packed-B mode (the s4 runtime) as the W4A8 convnet's s4 tree
+        launches it at bs1024, normal at the convs and grouped at fc1 and
+        fc2; the bound counts the packed weight's bytes. No PyTorch call
+        computes it: int8_wide_ms is the same launch on the widened weight.
+        The bs1 figures beside them (the first row of each call)."""
+        sums, one = k1p[kind], k1p[f"{kind}_bs1"]
+        name = "int8_gemm_packed" + ("_grouped" if kind == "grouped" else "")
+        e = entry(name, "convnet_w4a8_s4", "int8_gemm.cu",
+                  "quantnet/ops/pallas_matmul.py:54 (packed-B mode: the s4 runtime's 4-bit weights, "
+                  "quantnet/quantize/common.py:90-113)", s4["launches"][kind],
+                  store_errs["convnet_w4a8_s4"]["k1"], sums, None)
+        e.update(int8_wide_ms=sums["library_ms"], bs1_ms=one["ms"], bs1_bound_ms=one["bound_ms"],
+                 bs1_plain_ms=one["plain_ms"], bs1_int8_wide_ms=one["library_ms"])
+        return e
+
     int8_err["mobilenetv2"] = store_errs["mobilenetv2"]["k1"]
     # One entry per (kernel, path): K1 runs on four paths, at other shapes,
     # so each path's launches, times and bound stay comparable across runs.
@@ -3145,7 +3609,8 @@ def main() -> int:
               "quantnet/ops/pallas_boundary.py:85", resnet_launches["residual_boundary"],
               boundary_err, k3, None),
         k4_entry(mnv2_launches["mobilenetv2"]["depthwise_conv"]),
-    )] + [grouped_entry(w4a8_launches["int8_gemm_grouped"])]
+    )] + [grouped_entry(w4a8_launches["int8_gemm_grouped"]), packed_entry("normal"),
+          packed_entry("grouped")]
     # The [accuracy] paths' launches, beside the entries whose kernels they
     # drive: MobileNetV2's sensitivity sweep (K1, K2, K4) and the refined
     # W4A8 ResNet-50's forward (K1, its grouped-K mode, K3).
@@ -3167,6 +3632,7 @@ def main() -> int:
     # one replay of the two-shard engine in [serve dp] (a device trace).
     for e in kernels:
         if (e["name"], e["path"]) == ("int8_gemm", "convnet_static"):
+            e.update(tensor_parallel_launches_per_rank=tp["forwards"]["static"]["launches"]["int8_gemm"])
             e.update(parallel_eval_launches=parallel["eval_launches"],
                      parallel_calibrated_launches=parallel["calibration"]["minmax"]["launches"],
                      serve_dp_launches_per_forward=serve_dp["launches_per_forward"]["int8_gemm"])
@@ -3177,7 +3643,10 @@ def main() -> int:
             e["accuracy_sweep_launches"] = accuracy["sweep"][e["name"]]
         if (e["name"], e["path"]) in refined:
             e["accuracy_refined_launches"] = accuracy["refined"][e["name"]]
-    print(f"kernels: int8_gemm exact (int32) and bit-equal (every store, the grouped-K mode) on "
+        if (e["name"], e["path"]) in (("int8_gemm", "resnet50"), ("residual_boundary", "resnet50")):
+            e["s4_refined_launches"] = s4["resnet50_launches"][e["name"]]
+    print(f"kernels: int8_gemm exact (int32) and bit-equal (every store, the grouped-K and the "
+          f"packed-B mode) on "
           f"its paths; fused_dynamic_gemm, residual_boundary and depthwise_conv bit-equal; no "
           "PyTorch call computes K1's fused store, its grouped-K mode, K2 or K3 alone (library: "
           "none; int32_library_ms is torch._int_mm against K1's int32 store; K4's library_ms is "

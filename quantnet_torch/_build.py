@@ -1,7 +1,9 @@
 """Builds the CUDA kernels at first use: nvcc -> shared library -> ctypes.
 
 Each `csrc/<name>.cu` becomes its own shared library with a plain C interface
-(no PyTorch headers, so a build takes seconds). The library's file name
+(no PyTorch headers, so a build takes seconds); `VARIANTS` builds a source a
+second time with macros of its own (K1's packed-B mode), as a library of its
+own, so that its template variants compile beside the first in parallel. The library's file name
 carries a hash of the sources and flags, under `build/quantnet_torch/` at the
 root of the checkout (listed in .gitignore). nvcc writes to a temporary name
 that `os.replace` moves into place, so a build cut off half way leaves no
@@ -66,6 +68,13 @@ SIGNATURES = {
     ),
 }
 
+# Libraries built from another library's source: name -> (source, nvcc
+# defines). The packed-B mode of the int8 GEMM (csrc/int8_gemm.cu,
+# QT_PACKED_B) exports the same C entry point from its own library.
+VARIANTS = {"int8_gemm_packed": ("int8_gemm", ("-DQT_PACKED_B=1",))}
+# Every library: one per source, and the variants.
+LIBRARIES = (*SIGNATURES, *VARIANTS)
+
 _libs: Dict[str, ctypes.CDLL] = {}
 build_seconds: Dict[str, float] = {}
 build_log: Dict[str, str] = {}
@@ -81,16 +90,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: building the CUDA kernels needs the CUDA toolkit")
 
 
+def _source(name: str):
+    """(the .cu file, the extra nvcc flags) of a library."""
+    src, defines = VARIANTS.get(name, (name, ()))
+    return CSRC / f"{src}.cu", defines
+
+
+def _signature(name: str):
+    """(C entry point, argtypes) of a library: its source's."""
+    return SIGNATURES[_source(name)[0].stem]
+
+
 def _library_path(name: str) -> Path:
+    source, defines = _source(name)
     h = hashlib.sha256()
-    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    for src in [source, *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + defines).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, ctypes.CDLL]:
+def build(names: Iterable[str] = LIBRARIES) -> Dict[str, ctypes.CDLL]:
     """Build (where not built yet) and load the named kernels' libraries, all
     nvcc processes started together. Returns {name: library}; raises on a
     failed build."""
@@ -103,7 +124,8 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, ctypes.CDLL]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
         log = tmp.with_name(f"{tmp.name}.log")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        source, defines = _source(name)
+        cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp), str(source)]
         with open(log, "w") as out:
             proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, text=True)
         pending[name] = (proc, tmp, log, path, time.perf_counter())
@@ -114,13 +136,13 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, ctypes.CDLL]:
             for name, (proc, tmp, log, path, t0) in list(running.items()):
                 if proc.poll() is None:
                     if time.perf_counter() - t0 > NVCC_TIMEOUT_S:
-                        raise RuntimeError(f"nvcc took more than {NVCC_TIMEOUT_S} s for {name}.cu")
+                        raise RuntimeError(f"nvcc took more than {NVCC_TIMEOUT_S} s for {name}")
                     continue
                 del running[name]
                 build_seconds[name] = time.perf_counter() - t0
                 build_log[name] = log.read_text()
                 if proc.returncode != 0:
-                    raise RuntimeError(f"nvcc failed for {name}.cu:\n{build_log[name]}")
+                    raise RuntimeError(f"nvcc failed for {name}:\n{build_log[name]}")
                 os.replace(tmp, path)
             time.sleep(0.05)
     finally:
@@ -133,19 +155,19 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, ctypes.CDLL]:
                     f.unlink()
     for name in names:
         lib = ctypes.CDLL(str(_library_path(name)))
-        fn_name, argtypes = SIGNATURES[name]
+        fn_name, argtypes = _signature(name)
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _libs[name] = lib
-    return {n: _libs[n] for n in SIGNATURES if n in _libs}
+    return {n: _libs[n] for n in LIBRARIES if n in _libs}
 
 
 def kernel(name: str):
     """The C entry point of one kernel, building its library at first use."""
     if name not in _libs:
         build([name])
-    return getattr(_libs[name], SIGNATURES[name][0])
+    return getattr(_libs[name], _signature(name)[0])
 
 
 def function(name: str, fn_name: str, argtypes):

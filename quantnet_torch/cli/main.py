@@ -40,8 +40,10 @@ devices (-1: every card). `report` writes the comparison table and the
 markdown report from accuracy.json and benchmark.json; `scaling` the
 weak-scaling sweep over the local cards (results/scaling.json);
 `experiment` runs train -> quantize all -> qat -> evaluate -> bench ->
-report (quantnet/cli/main.py:685-704). Not ported yet, and refused by name:
-bench's --s4-runtime (ROADMAP Queue 1 item 5) and ImageNet data (Queue 1
+report (quantnet/cli/main.py:685-704). `bench --s4-runtime` benches the
+sub-byte tiers with their 4-bit weights nibble-packed in device memory
+(quantize/common.py::s4_runtime_tree; the same logits, half the weight
+bytes). Not ported yet, and refused by name: ImageNet data (ROADMAP Queue 1
 item 4).
 """
 from __future__ import annotations
@@ -62,10 +64,7 @@ SUB_BYTE = ("weight_only_int4", "w4a8")
 # Every artifact evaluate, bench and serve load, in the JAX CLI's order
 # (quantnet/cli/main.py:466-468).
 RUNNABLE = ("fp32",) + SCHEMES + ("qat", "qat_int4", "qat_w4a8")
-NOT_PORTED = (
-    "Not ported yet: the model axis and bench --s4-runtime (ROADMAP Queue 1 item 5); "
-    "--dataset imagenet (Queue 1 item 4)."
-)
+NOT_PORTED = "Not ported yet (ROADMAP): --dataset imagenet (Queue 1 item 4)."
 
 
 def _torch_pad(meta) -> bool:
@@ -453,6 +452,12 @@ def cmd_bench(args):
     models, test, _ = _collect_models(args)
     if not models:
         raise SystemExit("no artifacts to bench; run import-torch / quantize first")
+    if args.s4_runtime:
+        # The sub-byte tiers' weights nibble-packed in device memory
+        # (quantnet/cli/main.py:521-540): the same logits, half the weight bytes.
+        from quantnet_torch.quantize.common import s4_runtime_tree
+
+        models = {name: (fn, s4_runtime_tree(p), s) for name, (fn, p, s) in models.items()}
     h, _, c = test.image_shape
     bench = InferenceBenchmark(image_size=h, channels=c, warmup=args.warmup, iters=args.iters,
                                device=args.device)
@@ -743,6 +748,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--batch-sizes", default="1,32,1024")
     sp.add_argument("--warmup", type=int, default=10)
     sp.add_argument("--iters", type=int, default=100)
+    sp.add_argument("--s4-runtime", action="store_true",
+                    help="pack the sub-byte tiers' 4-bit weights two to a byte in device memory "
+                         "before benching (the same logits; half the weight bytes, the bs1 lever)")
     sp.set_defaults(fn=cmd_bench)
 
     sp = sub.add_parser("serve", help="a load test of the continuous-batching engine")

@@ -29,7 +29,7 @@ jnp.clip's gradient, which is 0.5, not 1, on the clip's ends.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,20 +74,27 @@ def sym_max(bits: int) -> float:
     return float(2 ** (bits - 1) - 1)
 
 
-def symmetric_scale(x: torch.Tensor, axis: Optional[int] = None, bits: int = 8) -> torch.Tensor:
+def symmetric_scale(x: torch.Tensor, axis: Optional[int] = None, bits: int = 8,
+                    reduce_max: Optional[Callable] = None) -> torch.Tensor:
     """absmax * f32(1 / sym_max(bits)), as XLA computes absmax / sym_max under
-    jit; () per-tensor, or keepdim-shaped per-channel."""
+    jit; () per-tensor, or keepdim-shaped per-channel. `reduce_max` takes
+    the absmax over the other shards of a reduction that the model axis
+    splits (parallel/tensor.py, an all-reduce max, exact)."""
     dims = _reduce_dims(x.ndim, axis)
     amax = torch.amax(torch.abs(x), dim=dims, keepdim=axis is not None)
+    if reduce_max is not None:
+        amax = reduce_max(amax)
     # The floor is taken in x's dtype, as the JAX package does for bf16 input.
     amax = torch.clamp_min(amax, EPS).float()
     return _mul_reciprocal(amax, sym_max(bits))
 
 
-def quantize_symmetric(x: torch.Tensor, axis: Optional[int] = None, bits: int = 8) -> QTensor:
-    """Symmetric quantization (weights); per-channel along `axis` if given."""
+def quantize_symmetric(x: torch.Tensor, axis: Optional[int] = None, bits: int = 8,
+                       reduce_max: Optional[Callable] = None) -> QTensor:
+    """Symmetric quantization (weights); per-channel along `axis` if given;
+    the absmax through `reduce_max` where given (symmetric_scale)."""
     m = sym_max(bits)
-    scale = symmetric_scale(x, axis, bits)
+    scale = symmetric_scale(x, axis, bits, reduce_max)
     q = torch.clamp(torch.round(x.float() / scale), -m, m)
     return QTensor(values=q.to(torch.int8), scale=scale, axis=axis, bits=bits)
 
@@ -129,14 +136,15 @@ def quantize_affine(
 
 
 def dynamic_quantize(
-    x: torch.Tensor, axis: Optional[int] = None
+    x: torch.Tensor, axis: Optional[int] = None, reduce_max: Optional[Callable] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-batch symmetric activation quantization: (int8 values, f32 scale).
 
     Convs take a per-tensor scale (axis=None), linears a per-row one (axis=0).
-    The scale is the jitted JAX forward's (`symmetric_scale`).
+    The scale is the jitted JAX forward's (`symmetric_scale`), its absmax
+    through `reduce_max` on a row shard of the model axis.
     """
-    scale = symmetric_scale(x, axis)
+    scale = symmetric_scale(x, axis, reduce_max=reduce_max)
     q = torch.clamp(torch.round(x.float() / scale), -SYM_MAX, SYM_MAX)
     return q.to(torch.int8), scale
 
@@ -211,18 +219,28 @@ def fake_quant_act_ste(x: torch.Tensor, scale: float, zero_point: int) -> torch.
 
 
 def fake_quant_weight_ste(
-    w: torch.Tensor, per_channel: bool = True, bits: int = 8, group_size: Optional[int] = None
+    w: torch.Tensor, per_channel: bool = True, bits: int = 8, group_size: Optional[int] = None,
+    *, k: Optional[int] = None, reduce_max: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Straight-through symmetric fake quantization of a weight
     (quantnet/core/quantize.py:185-211): the scale follows the live weight's
     absmax, per output channel when per_channel, on the grid quantize_weight
     gives (groups along K only for a 2-D weight whose K the group divides),
     so the bake deploys what training simulated. Written w + (fq - w); the
-    gradient is the identity."""
+    gradient is the identity.
+
+    A shard of the model axis (parallel/tensor.py) passes the weight's
+    global K (`k`: the groups are decided on it, not on the shard's rows,
+    which then hold whole groups) and `reduce_max`, through which every
+    absmax that the shard's rows do not cover whole is taken."""
     with torch.no_grad():
-        if per_channel and group_size is not None and w.ndim == 2 and w.shape[0] % group_size == 0:
+        rows = w.shape[0] if k is None else k
+        if per_channel and group_size is not None and w.ndim == 2 and rows % group_size == 0:
+            if w.shape[0] % group_size:
+                raise ValueError(f"a shard of {w.shape[0]} rows splits a group of {group_size}")
             fq = quantize_symmetric_grouped(w, group_size, bits=bits).dequantize()
         else:
-            fq = quantize_symmetric(w, (w.ndim - 1) if per_channel else None, bits=bits).dequantize()
+            fq = quantize_symmetric(w, (w.ndim - 1) if per_channel else None, bits=bits,
+                                    reduce_max=reduce_max).dequantize()
         d = fq - w
     return w + d

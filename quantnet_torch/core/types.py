@@ -9,12 +9,35 @@ that trains through fake quantization (quantnet_torch/quantize/qat.py).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 _HANDOFF_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# K of a nibble-packed operand is zero-padded to a multiple of this: its
+# rows are then a multiple of 16 bytes, the int8 GEMM kernel's TMA stride.
+PACK_ALIGN = 32
+
+
+def pack_nibbles(v_nk: torch.Tensor) -> torch.Tensor:
+    """int8[N, K] of 4-bit values (-8..7) -> uint8[N, K'/2], K' = K rounded
+    up to PACK_ALIGN: two's-complement nibbles packed along K, the even k in
+    the low nibble, the padding zero nibbles. A zero byte unpacks to two
+    zeros, as the kernel's zero fill past K needs."""
+    n, k = v_nk.shape
+    v = torch.nn.functional.pad(v_nk.to(torch.int16), (0, -k % PACK_ALIGN)) & 0x0F
+    return (v[:, 0::2] | (v[:, 1::2] << 4)).to(torch.uint8).contiguous()
+
+
+def unpack_nibbles(p: torch.Tensor, k: Optional[int] = None) -> torch.Tensor:
+    """pack_nibbles' inverse: uint8[N, W] -> int8[N, k] (k <= 2W, default 2W),
+    each nibble sign-extended."""
+    b = p.to(torch.int16)
+    lo, hi = b & 0x0F, b >> 4
+    v = (torch.stack([lo, hi], dim=-1).reshape(p.shape[0], -1) ^ 8) - 8
+    return v[:, : (2 * p.shape[1] if k is None else k)].to(torch.int8)
 
 
 @dataclass
@@ -28,10 +51,16 @@ class QTensor:
     zero_point: optional int32 zero point; None means symmetric.
     axis:   channel axis of a per-channel scale, or None for per-tensor.
     bits:   quantized bit width (values lie in [-2**(bits-1)+1, 2**(bits-1)-1]);
-            a 4-bit payload stays int8 at run time and is packed two to a
-            byte only on disk (quantnet_torch/train/checkpoint.py).
+            a 4-bit payload stays int8 at run time unless the s4 runtime
+            packs it (`packed_shape`), and is packed two to a byte on disk
+            (quantnet_torch/train/checkpoint.py, with a +8 offset there).
     group_size: rows of the reduction axis 0 that share a scale, or None.
             A grouped (K, N) weight has a (K // g, 1, N) scale.
+    packed_shape: None, or the s4 runtime payload
+            (quantize/common.py::s4_runtime_tree): `values` is then the
+            weight as the int8 GEMM kernel reads it, uint8[N, K'/2]
+            (pack_nibbles of `nk()`), and this the logical shape. No int8
+            copy is kept; `int8_values()` widens one when an op asks.
 
     Dequantization contract: ``(values - zero_point) * scale``, a grouped
     scale broadcast over its group's rows.
@@ -44,17 +73,41 @@ class QTensor:
     bits: int = 8
     group_size: Optional[int] = None
     _nk: Optional[torch.Tensor] = field(default=None, repr=False, compare=False)
+    packed_shape: Optional[Tuple[int, ...]] = None
 
     @property
     def shape(self):
-        return self.values.shape
+        return self.values.shape if self.packed_shape is None else torch.Size(self.packed_shape)
 
     @property
     def dtype(self):
         return self.values.dtype
 
+    @property
+    def is_packed(self) -> bool:
+        return self.packed_shape is not None
+
+    def int8_values(self) -> torch.Tensor:
+        """The payload as int8 of the logical shape: `values` itself, or a
+        transient widening of the packed one (contiguous, as `values` is:
+        the layout can change which summation order a CPU conv takes)."""
+        if self.packed_shape is None:
+            return self.values
+        k = math.prod(self.packed_shape[:-1])
+        return unpack_nibbles(self.values, k).t().contiguous().reshape(self.packed_shape)
+
+    def packed(self) -> "QTensor":
+        """This 4-bit weight with its payload nibble-packed (packed_shape)."""
+        if self.packed_shape is not None:
+            return self
+        if self.bits != 4:
+            raise ValueError(f"only a 4-bit payload packs, not {self.bits}-bit")
+        return QTensor(values=pack_nibbles(self.nk()), scale=self.scale,
+                       zero_point=self.zero_point, axis=self.axis, bits=self.bits,
+                       group_size=self.group_size, packed_shape=tuple(self.values.shape))
+
     def dequantize(self, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        v = self.values.to(dtype)
+        v = self.int8_values().to(dtype)
         if self.zero_point is not None:
             v = v - self.zero_point.to(dtype)
         if self.group_size is not None:
@@ -67,19 +120,22 @@ class QTensor:
     def nbytes(self) -> int:
         """Bytes on disk: the payload packed to `bits` (two 4-bit values to
         a byte), the scale and the zero point."""
-        n = -(-self.values.numel() * self.bits // 8)
+        n = -(-math.prod(self.shape) * self.bits // 8)
         n += self.scale.numel() * self.scale.element_size()
         if self.zero_point is not None:
             n += self.zero_point.numel() * self.zero_point.element_size()
         return n
 
     def nk(self) -> torch.Tensor:
-        """The weight as the GEMM kernels take it: int8[N, K], K contiguous.
+        """The weight as the GEMM kernels take it: int8[N, K], K contiguous
+        (the packed uint8[N, K'/2] operand itself when packed).
 
         `values` is (K, N) for a dense layer and HWIO for a conv, whose im2col
         reduction K is kh*kw*C in that order. Weights are constant, so the
         transposed copy is made once and kept.
         """
+        if self.packed_shape is not None:
+            return self.values
         if self._nk is None:
             k_n = self.values.reshape(-1, self.values.shape[-1])
             self._nk = k_n.t().contiguous()

@@ -58,6 +58,27 @@
 // mode runs 64-wide tiles (BN = 64: a second accumulator set in registers,
 // and more tiles for the small-M products of the classifier layers) and
 // stores f32 or int8.
+//
+// Packed-B mode (the s4 runtime's 4-bit weights; built as a library of its
+// own with QT_PACKED_B=1, quantnet_torch/_build.py VARIANTS, in both the
+// normal and the grouped-K mode and for every store): B is uint8[N, K/2],
+// two's-complement nibbles packed along K, the even k in the low nibble, K a
+// multiple of 32. At bs1 the weight's bytes bound the product, and halving
+// them is the lever; at the convnet's bs1024 shapes A's bytes dominate. A
+// stage then loads BN x 64 bytes of B (128 nibbles of K a row) by a tensor
+// map of its own (64-byte box, no swizzle) into a packed buffer beside the
+// int8 B tile. The producer warpgroup's three idle warps widen it into that
+// tile, in the 128-byte swizzle wgmma reads: each nibble sign-extended by
+// ((x & 0x0F0F0F0F) ^ 0x08080808) - 0x08080808 per byte (__vsub4), lo and
+// hi interleaved by __byte_perm; then fence.proxy.async (wgmma reads
+// through the async proxy what they wrote through the generic one) and an
+// arrive on the stage's third mbarrier ("unpacked"), which the consumers
+// wait on after "full". One widening serves both consumers. TMA's zero fill
+// past N and K gives zero bytes, which widen to zeros: so the integers, and
+// every store, are the int8-wide launch's on the widened weight, bit for bit.
+#ifndef QT_PACKED_B
+#define QT_PACKED_B 0
+#endif
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,6 +96,8 @@ constexpr int THREADS = 384;      // producer warpgroup + two consumer warpgroup
 constexpr int CONSUMERS = 256;
 constexpr int MAX_STAGES = 8;
 constexpr int ALIGN = 1024;       // the 128-byte swizzle repeats every 8 rows
+constexpr bool PACKED = QT_PACKED_B != 0;  // B nibble-packed (this library's mode)
+constexpr int UNPACKERS = 96;     // packed mode: warps 1-3 of the producer warpgroup
 
 enum Store { STORE_INT32 = 0, STORE_F32 = 1, STORE_BF16 = 2, STORE_INT8 = 3 };
 
@@ -100,13 +123,17 @@ struct StoreTraits {
 template <int BN>
 struct Smem {
   static constexpr int A_BYTES = BM * BK;
-  static constexpr int STAGE_BYTES = A_BYTES + BN * BK;
+  // Packed mode: the TMA-loaded half-width B (BN rows of 64 bytes) sits
+  // after the int8 B tile that the unpackers fill.
+  static constexpr int B_LOAD = PACKED ? A_BYTES + BN * BK : A_BYTES;
+  static constexpr int LOAD_BYTES = A_BYTES + (PACKED ? BN * BK / 2 : BN * BK);
+  static constexpr int STAGE_BYTES = A_BYTES + BN * BK + (PACKED ? BN * BK / 2 : 0);
   static constexpr int OUT_BUF = 64 * 128;  // 64 rows x one 128-byte swizzle row
   // Staging buffers of a consumer (TMA stores in flight): two at BN = 256,
   // where more would cost a stage of the ring.
   static constexpr int OUT_BUFS = BN == 256 ? 2 : 4;
   static constexpr int STAGING = 2 * OUT_BUFS * OUT_BUF;
-  static constexpr int BARRIERS = 2 * MAX_STAGES * 8;
+  static constexpr int BARRIERS = (PACKED ? 3 : 2) * MAX_STAGES * 8;
   static size_t bytes(int stages) { return ALIGN + (size_t)stages * STAGE_BYTES + STAGING + BARRIERS; }
 };
 
@@ -375,6 +402,35 @@ __device__ __forceinline__ void store_tile(T (&acc)[BN / 2], const CUtensorMap* 
   }
 }
 
+// Eight 4-bit values packed in x (two's complement, the even one in the low
+// nibble of each byte) -> eight int8 values in a (the first four) and b.
+__device__ __forceinline__ void unpack_nibbles8(uint32_t x, uint32_t& a, uint32_t& b) {
+  const uint32_t lo = __vsub4((x & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+  const uint32_t hi = __vsub4(((x >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+  a = __byte_perm(lo, hi, 0x5140);
+  b = __byte_perm(lo, hi, 0x7362);
+}
+
+// Packed mode: one stage's packed B (BN rows of 64 bytes, unswizzled) widened
+// into the int8 B tile (BN rows of 128 bytes, 128-byte swizzle) by UNPACKERS
+// threads, u = 0 .. UNPACKERS - 1. A 16-byte chunk c of a packed row holds K
+// 32c .. 32c + 31: the tile row's chunks 2c and 2c + 1.
+template <int BN>
+__device__ __forceinline__ void unpack_stage(const uint8_t* src, uint8_t* dst, int u) {
+  for (int i = u; i < BN * 4; i += UNPACKERS) {
+    const int r = i >> 2, c = i & 3;
+    const uint4 p = *reinterpret_cast<const uint4*>(src + r * 64 + c * 16);
+    uint4 lo, hi;
+    unpack_nibbles8(p.x, lo.x, lo.y);
+    unpack_nibbles8(p.y, lo.z, lo.w);
+    unpack_nibbles8(p.z, hi.x, hi.y);
+    unpack_nibbles8(p.w, hi.z, hi.w);
+    uint8_t* row = dst + r * 128;
+    *reinterpret_cast<uint4*>(row + (((2 * c) ^ (r & 7)) << 4)) = lo;
+    *reinterpret_cast<uint4*>(row + (((2 * c + 1) ^ (r & 7)) << 4)) = hi;
+  }
+}
+
 // Grouped mode: at the end of group gi, acc (this thread's fragments of the
 // tile, columns n0..) folds into facc in f32, facc += float(acc - gzpw[gi, n])
 // * gs[gi, n], and restarts at zero. Columns past N hold zeros on both sides.
@@ -412,6 +468,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint8_t* staging = ring + stages * L::STAGE_BYTES;
   uint64_t* full = reinterpret_cast<uint64_t*>(staging + L::STAGING);
   uint64_t* empty = full + MAX_STAGES;
+  uint64_t* unpacked = empty + MAX_STAGES;  // packed mode only
 
   const int num_n = (N + BN - 1) / BN;
   const int tiles = ((M + BM - 1) / BM) * num_n;
@@ -422,6 +479,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int s = 0; s < stages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], CONSUMERS);
+      if constexpr (PACKED) mbar_init(&unpacked[s], UNPACKERS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
@@ -429,6 +487,24 @@ __global__ void __launch_bounds__(THREADS, 1)
   __syncthreads();
 
   if (wg == 0) {
+    if (tid >= 32) {
+      // Packed mode: warps 1-3 widen each stage's B once it has arrived.
+      if constexpr (PACKED) {
+        int stage = 0;
+        unsigned phase = 0;
+        for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+          for (int ks = 0; ks < ksteps; ++ks) {
+            mbar_wait(&full[stage], phase);
+            uint8_t* st = ring + stage * L::STAGE_BYTES;
+            unpack_stage<BN>(st + L::B_LOAD, st + L::A_BYTES, tid - 32);
+            asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // visible to wgmma
+            mbar_arrive(&unpacked[stage]);
+            if (++stage == stages) stage = 0, phase ^= 1;
+          }
+        }
+      }
+      return;
+    }
     // Producer: one thread keeps the ring full, across tile boundaries.
     if (tid != 0) return;
     asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tmap_a)) : "memory");
@@ -441,9 +517,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int ks = 0; ks < ksteps; ++ks) {
         mbar_wait(&empty[stage], phase ^ 1);
         uint8_t* sa = ring + stage * L::STAGE_BYTES;
-        mbar_expect_tx(&full[stage], L::STAGE_BYTES);
+        mbar_expect_tx(&full[stage], L::LOAD_BYTES);
         tma_load(sa, &tmap_a, &full[stage], ks * BK, m0, keep_a);
-        tma_load(sa + L::A_BYTES, &tmap_b, &full[stage], ks * BK, n0, keep_b);
+        tma_load(sa + L::B_LOAD, &tmap_b, &full[stage], PACKED ? ks * BK / 2 : ks * BK, n0, keep_b);
         if (++stage == stages) stage = 0, phase ^= 1;
       }
     }
@@ -483,6 +559,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     for (int ks = 0; ks < ksteps; ++ks) {
       mbar_wait(&full[stage], phase);
+      if constexpr (PACKED) mbar_wait(&unpacked[stage], phase);
       const uint8_t* sa = ring + stage * L::STAGE_BYTES + c * 64 * BK;
       const uint8_t* sb = ring + stage * L::STAGE_BYTES + L::A_BYTES;
 #pragma unroll
@@ -533,6 +610,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 // The int8 store's requantize alone, elementwise, as the epilogue runs it
 // (fast_div, and __fdiv_rn for a warp with a lane out of its range): for
 // holding the division against PyTorch's on inputs a GEMM seldom makes.
+#if !QT_PACKED_B
 __global__ void requantize_kernel(const float* __restrict__ y, int8_t* __restrict__ q, long long n,
                                   Epilogue e) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -542,6 +620,7 @@ __global__ void requantize_kernel(const float* __restrict__ y, int8_t* __restric
   if (__any_sync(~0u, slow)) r = qt::requantize<false>(v, e.oq, slow);
   if (i < n) q[i] = r;
 }
+#endif
 
 // cuTensorMapEncodeTiled, reached through the runtime so that the library
 // needs no link against libcuda.
@@ -655,7 +734,9 @@ int launch(const Plan& p, const void* a, const void* b, void* c, int M, int N, i
            long long ldc, const Epilogue& epi, cudaStream_t stream) {
   if (p.stages < 2) return ERR_ARGS;
   CUtensorMap ta, tb, tc;
-  if (!encode(&ta, a, 1, M, K, K, BM) || !encode(&tb, b, 1, N, K, K, BN) ||
+  // B: int8[N, K], or packed uint8[N, K / 2] in 64-byte unswizzled boxes.
+  const int kb = PACKED ? K / 2 : K;
+  if (!encode(&ta, a, 1, M, K, K, BM) || !encode(&tb, b, 1, N, kb, kb, BN, PACKED) ||
       !encode(&tc, c, StoreTraits<STORE>::BYTES, M, N, ldc, 64, narrow_store(BN, STORE, GROUPED)))
     return ERR_ENCODE;
   auto kernel = int8_gemm_kernel<BN, STORE, GROUPED>;
@@ -691,7 +772,9 @@ int dispatch(const Plan& p, const void* a, const void* b, void* c, int M, int N,
 
 }  // namespace
 
-// a: int8[M,K], b: int8[N,K], both contiguous, 16-byte aligned, K % 16 == 0.
+// a: int8[M,K], b: int8[N,K], both contiguous, 16-byte aligned, K % 16 == 0
+// (this library built with QT_PACKED_B: b is uint8[N, K/2] nibble-packed,
+// K % 32 == 0).
 // The epilogue's vectors are contiguous and 8-byte aligned.
 // store: 0 int32 (no epilogue), 1 f32, 2 bf16, 3 int8 (out_s, out_zp); c is
 // [M, ldc] of that type (ldc >= N, ldc * its size % 16 == 0, 16-byte
@@ -708,7 +791,7 @@ extern "C" int int8_gemm(const void* a, const void* b, void* c, long long M, lon
                          const void* gs, const void* gzpw, long long group, void* stream) {
   const long long big = 1LL << 31;
   const int esize = store == STORE_INT8 ? 1 : store == STORE_BF16 ? 2 : 4;
-  if (M <= 0 || N <= 0 || K <= 0 || M >= big || N >= big || K >= big || K % 16 != 0 ||
+  if (M <= 0 || N <= 0 || K <= 0 || M >= big || N >= big || K >= big || K % (PACKED ? 32 : 16) != 0 ||
       ldc < N || (ldc * esize) % 16 != 0 || (reinterpret_cast<uintptr_t>(a) & 15) ||
       (reinterpret_cast<uintptr_t>(b) & 15) || (reinterpret_cast<uintptr_t>(c) & 15) ||
       store < STORE_INT32 || store > STORE_INT8 || (store != STORE_INT32 && !cs) || act < 0 ||
@@ -733,6 +816,7 @@ extern "C" int int8_gemm(const void* a, const void* b, void* c, long long M, lon
   }
 }
 
+#if !QT_PACKED_B
 // q[i] = the int8 store's requantize of y[i] into (out_s, out_zp); y: f32[n],
 // q: int8[n]. Launches on `stream`; returns cudaGetLastError().
 extern "C" int int8_requantize(const void* y, void* q, long long n, float out_s, float out_zp,
@@ -745,3 +829,4 @@ extern "C" int int8_requantize(const void* y, void* q, long long n, float out_s,
       static_cast<const float*>(y), static_cast<int8_t*>(q), n, e);
   return static_cast<int>(cudaGetLastError());
 }
+#endif

@@ -33,7 +33,7 @@ import torch
 
 from quantnet_torch.core.config import DEFAULT_FLAGS, Flags, resolve_device
 from quantnet_torch.core.quantize import dequantize, fake_quant_act_ste, quantize_affine
-from quantnet_torch.core.types import ActQuant, QTensor
+from quantnet_torch.core.types import ActQuant
 from quantnet_torch.models import batchnorm, capture_input, copy_dicts, state_slot
 from quantnet_torch.ops.conv import conv2d
 from quantnet_torch.ops.int8_matmul import activation
@@ -165,18 +165,14 @@ def _first_conv(block: dict) -> dict:
     return block.get("expand", block["dw"])
 
 
-def _leaf_shape(w):
-    return w.values.shape if isinstance(w, QTensor) else w.shape
-
-
 def _block_cin(bp: dict) -> int:
     # The reference's reading, kept for parity: for a t=1 block the first
     # conv is the depthwise one, whose I axis is 1 (see the module docstring).
-    return _leaf_shape(_first_conv(bp)["w"])[2]
+    return _first_conv(bp)["w"].shape[2]
 
 
 def _block_cout(bp: dict) -> int:
-    return _leaf_shape(bp["project"]["w"])[3]
+    return bp["project"]["w"].shape[3]
 
 
 def _block_stride_is_2(index: int) -> bool:
@@ -227,7 +223,7 @@ def _forward(params, state, x, train, generator, capture, torch_pad, flags):
     )
     for i, name in enumerate(names):
         bp, bs = params[name], state.get(name, {})
-        hidden = _leaf_shape(bp["dw"]["w"])[3]
+        hidden = bp["dw"]["w"].shape[3]
         stride = 2 if _block_stride_is_2(i) else 1
         residual = stride == 1 and _block_cin(bp) == _block_cout(bp)
         identity = x

@@ -159,7 +159,7 @@ def _int8_conv(
 ) -> torch.Tensor:
     """int8 NHWC conv via pre-pad (0, or the zero point) + im2col + the int8
     GEMM kernel with `epi` fused -> [N, Ho, Wo, O] of epi.out."""
-    kh, kw, _, co = layer["w"].values.shape
+    kh, kw, _, co = layer["w"].shape
     patches = _im2col(_pad_nhwc(qx, pads, pad_value), kh, kw, stride, K_ALIGN)
     n, ho, wo, pc = patches.shape
     y = int8_matmul(patches.reshape(n * ho * wo, pc), layer, flags, epi)
@@ -176,9 +176,11 @@ def _int8_depthwise(
     pad_value: int = 0,
 ) -> torch.Tensor:
     """int8 NHWC depthwise conv through the depthwise conv kernel with `epi`
-    fused -> [N, Ho, Wo, C] of epi.out; the padding is the kernel's own."""
+    fused -> [N, Ho, Wo, C] of epi.out; the padding is the kernel's own. A
+    packed 4-bit weight (9 x C values) is widened into a transient int8
+    tensor for the launch."""
     conv = depthwise_conv_plain if flags.plain else depthwise_conv
-    return conv(qx.contiguous(), layer["w"].values, stride, pads, pad_value, epi)
+    return conv(qx.contiguous(), layer["w"].int8_values(), stride, pads, pad_value, epi)
 
 
 def _check_groups(groups: int, x_shape, w_shape) -> None:
@@ -249,7 +251,8 @@ def conv2d(
     if aq is None:
         # Weight-only: the conv in the activation dtype with f32 accumulation,
         # the per-channel scale after it.
-        y = _conv_f32(x, w.values.to(x.dtype), stride, pads, groups) * w.scale
+        # (a packed 4-bit payload widened in torch ops, as XLA converts it)
+        y = _conv_f32(x, w.int8_values().to(x.dtype), stride, pads, groups) * w.scale
         return float_epilogue(y, b, activation, out_quant)
 
     if isinstance(aq, DynamicActQuant):

@@ -11,8 +11,19 @@ of K rows, each folded into an f32 sum with its own zero-point correction and
 weight scale, in group order. Both launch the hand-written CUDA kernel
 (csrc/int8_gemm.cu) on a CUDA tensor and run their plain version on a CPU
 tensor; there is no other route. `int8_gemm.launches` counts every launch of
-the kernel, whatever it stores, and `int8_gemm.grouped_launches` those of
-them in the grouped-K mode.
+the kernel, whatever it stores, `int8_gemm.grouped_launches` those of them
+in the grouped-K mode and `int8_gemm.packed_launches` those in the packed-B
+mode.
+
+Packed-B mode (the s4 runtime, quantize/common.py::s4_runtime_tree): B may
+be a 4-bit weight nibble-packed along K, uint8[N, K'/2] (core/types.py::
+pack_nibbles: two's-complement nibbles, the even k low, K' a multiple of
+PACK_ALIGN = 32 so that its rows are whole 16-byte TMA strides). The kernel
+then loads half the weight bytes and widens them in shared memory; every
+store is the same integers' and so bit-equal to the int8-wide launch. The
+wrappers zero-pad A's K to K' (exact: zero nibbles). The grouped mode takes
+K' = K (a group that is a multiple of 32). The plain version widens B with
+torch ops.
 
 B is taken as int8[N, K], K contiguous: weights are transposed once at
 quantize time (`QTensor.nk`), so both operands stream along K. The kernel's
@@ -32,7 +43,7 @@ import torch.nn.functional as F
 
 from quantnet_torch import _build
 from quantnet_torch.core.quantize import clip, quantize_affine
-from quantnet_torch.core.types import ActQuant
+from quantnet_torch.core.types import PACK_ALIGN, ActQuant, unpack_nibbles
 
 K_ALIGN = 16
 # The kernel's store codes (csrc/int8_gemm.cu, enum Store) and activation
@@ -117,13 +128,26 @@ class Epilogue:
                 raise ValueError(f"epilogue {name} must be contiguous and 8-byte aligned on {a.device}")
 
 
+def is_packed(b_nk: torch.Tensor) -> bool:
+    """Whether a B operand is nibble-packed (the s4 runtime's uint8[N, K'/2])."""
+    return b_nk.dtype == torch.uint8
+
+
+def gemm_width(b_nk: torch.Tensor) -> int:
+    """The K that a B operand spans: its width, twice that when packed."""
+    return b_nk.shape[1] * (2 if is_packed(b_nk) else 1)
+
+
 def int8_gemm_plain(a: torch.Tensor, b_nk: torch.Tensor) -> torch.Tensor:
-    """int8[M,K] @ int8[N,K]^T -> int32[M,N], exact on any device.
+    """int8[M,K] @ int8[N,K]^T -> int32[M,N], exact on any device (B packed:
+    widened with torch ops to A's K first).
 
     Every product and partial sum of int8 values is an integer below 2**53 for
     K < 2**38, so a float64 product is exact whatever its summation order
     (CUDA has no integer matmul).
     """
+    if is_packed(b_nk):
+        b_nk = unpack_nibbles(b_nk, a.shape[1])
     return (a.double() @ b_nk.double().t()).to(torch.int32)
 
 
@@ -164,6 +188,8 @@ def int8_gemm_epilogue_plain(a: torch.Tensor, b_nk: torch.Tensor, epi: Epilogue)
     GEMM of its K-slice of both operands."""
     if epi.group is None:
         return apply_epilogue(int8_gemm_plain(a, b_nk), epi)
+    if is_packed(b_nk):
+        b_nk = unpack_nibbles(b_nk, a.shape[1])
     y = grouped_accumulate(lambda lo, hi: int8_gemm_plain(a[:, lo:hi], b_nk[:, lo:hi]),
                            a.shape[1], epi)
     return finish_epilogue(y * epi.cs, epi)
@@ -171,7 +197,11 @@ def int8_gemm_epilogue_plain(a: torch.Tensor, b_nk: torch.Tensor, epi: Epilogue)
 
 def pad_k(a: torch.Tensor, b_nk: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both operands with K zero-padded to a multiple of K_ALIGN (unchanged
-    where it is one already): the same product, in rows TMA can load."""
+    where it is one already): the same product, in rows TMA can load. A
+    packed B is padded already: A is padded to its K'."""
+    if is_packed(b_nk):
+        pad = gemm_width(b_nk) - a.shape[1]
+        return (F.pad(a, (0, pad)) if pad else a), b_nk
     pad = -a.shape[1] % K_ALIGN
     if pad == 0:
         return a, b_nk
@@ -181,11 +211,16 @@ def pad_k(a: torch.Tensor, b_nk: torch.Tensor) -> Tuple[torch.Tensor, torch.Tens
 def _operands(a: torch.Tensor, b_nk: torch.Tensor, pad: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Checks both operands and returns them K-padded for the kernel (as
     they are with `pad` False: the grouped mode's K is whole groups)."""
-    if a.dtype != torch.int8 or b_nk.dtype != torch.int8:
-        raise TypeError(f"int8_gemm takes int8 operands, got {a.dtype} and {b_nk.dtype}")
-    if a.ndim != 2 or b_nk.ndim != 2 or a.shape[1] != b_nk.shape[1]:
+    packed = is_packed(b_nk)
+    if a.dtype != torch.int8 or not (b_nk.dtype == torch.int8 or packed):
+        raise TypeError(f"int8_gemm takes int8 operands (B may be nibble-packed uint8), got "
+                        f"{a.dtype} and {b_nk.dtype}")
+    width = gemm_width(b_nk) if b_nk.ndim == 2 else -1
+    fits = a.shape[1] <= width < a.shape[1] + PACK_ALIGN if packed else a.shape[1] == width
+    if a.ndim != 2 or b_nk.ndim != 2 or not fits or (packed and width % PACK_ALIGN):
         raise ValueError(
-            f"int8_gemm takes a[M,K] and b[N,K], got {tuple(a.shape)} and {tuple(b_nk.shape)}"
+            f"int8_gemm takes a[M,K] and b[N,K] (packed: uint8[N,K'/2], K' = K rounded up to "
+            f"{PACK_ALIGN}), got {tuple(a.shape)} and {b_nk.dtype}{tuple(b_nk.shape)}"
         )
     if not (a.is_cuda or a.is_cpu):
         raise ValueError(f"int8_gemm runs on cuda or cpu tensors, got {a.device}")
@@ -219,7 +254,8 @@ def _launch(a: torch.Tensor, b: torch.Tensor, epi: Optional[Epilogue]) -> torch.
         out_s, out_zp = epi.out_quant.host_scalars() if epi.out_quant is not None else (0.0, 0.0)
         if epi.group is not None:
             grouped = (epi.gs.data_ptr(), epi.gzpw.data_ptr(), epi.group)
-    fn = _build.kernel("int8_gemm")
+    packed = is_packed(b)
+    fn = _build.kernel("int8_gemm_packed" if packed else "int8_gemm")
     args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, ldc, store, *ptrs, act, out_s,
             out_zp, *grouped)
     dev = a.get_device()
@@ -234,6 +270,8 @@ def _launch(a: torch.Tensor, b: torch.Tensor, epi: Optional[Epilogue]) -> torch.
     int8_gemm.launches += 1
     if epi is not None and epi.group is not None:
         int8_gemm.grouped_launches += 1
+    if packed:
+        int8_gemm.packed_launches += 1
     return out if ldc == n else out[:, :n]
 
 
@@ -257,6 +295,9 @@ def int8_gemm_epilogue(a: torch.Tensor, b_nk: torch.Tensor, epi: Epilogue) -> to
     if epi.group is not None and epi.group % GROUP_ALIGN:
         raise ValueError(f"the int8 GEMM kernel's grouped mode takes a group that is a multiple "
                          f"of {GROUP_ALIGN}, got group {epi.group}")
+    if epi.group is not None and gemm_width(b_nk) != a.shape[1]:
+        raise ValueError(f"the grouped mode takes a packed B of exactly K = {a.shape[1]}, "
+                         f"got K' = {gemm_width(b_nk)}")
     return _launch(a, b_nk, epi)
 
 
@@ -298,3 +339,4 @@ def requantize_cases(scale: float, device) -> torch.Tensor:
 
 int8_gemm.launches = 0
 int8_gemm.grouped_launches = 0  # of them, the grouped-K mode's (W4A8)
+int8_gemm.packed_launches = 0  # of them, the packed-B mode's (the s4 runtime)

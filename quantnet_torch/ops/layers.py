@@ -16,7 +16,11 @@ batch's statistics, summed across ranks through `axis.sum` (which autograd
 sees, so the gradient reaches every rank's rows), as the JAX step's
 `jnp.mean` over a batch-sharded axis is global; dropout draws the global
 batch's mask and keeps this rank's rows, so the ranks together draw what
-one process draws for the whole batch.
+one process draws for the whole batch. Between a column-parallel layer and
+the row-parallel one after it (parallel/tensor.py: fc1's output columns
+split over the model axis), a 2-D activation of the shard's width is this
+rank's columns: dropout then draws the global [M, N] mask and keeps its
+rows and its columns.
 """
 from __future__ import annotations
 
@@ -38,6 +42,18 @@ BN_MOMENTUM = 0.1  # new = (1 - m) * running + m * batch
 # and `sum(t)` (the sum of every rank's t, differentiable); None in one
 # process.
 _BATCH_AXIS: contextvars.ContextVar = contextvars.ContextVar("batch_axis", default=None)
+
+
+# The features a column-parallel layer left split: (index, size, width) of
+# this rank's columns on the model axis, set by that layer and cleared by the
+# row-parallel layer that reduces them (ops/linear.py); None elsewhere.
+_COLUMNS: contextvars.ContextVar = contextvars.ContextVar("column_shard", default=None)
+
+
+def set_column_shard(columns) -> None:
+    """Mark the activations of `columns` = (index, size, width) as column
+    shards until the next call (None clears it)."""
+    _COLUMNS.set(columns)
 
 
 @contextlib.contextmanager
@@ -154,12 +170,21 @@ def dropout(
         return x
     keep = 1.0 - rate
     if mask is None:
-        axis = _BATCH_AXIS.get()
-        if axis is None:
+        axis, cols = _BATCH_AXIS.get(), _COLUMNS.get()
+        if cols is not None and not (x.ndim == 2 and x.shape[1] == cols[2]):
+            cols = None
+        if axis is None and cols is None:
             mask = torch.rand(x.shape, generator=generator, device=generator.device) < keep
         else:
-            m = x.shape[0]
-            draw = torch.rand((m * axis.size, *x.shape[1:]), generator=generator,
-                              device=generator.device)
-            mask = draw[axis.rank * m:(axis.rank + 1) * m] < keep
+            m, shape = x.shape[0], list(x.shape)
+            ranks = 1 if axis is None else axis.size
+            shape[0] *= ranks
+            if cols is not None:
+                shape[1] *= cols[1]
+            draw = torch.rand(shape, generator=generator, device=generator.device)
+            if axis is not None:
+                draw = draw[axis.rank * m:(axis.rank + 1) * m]
+            if cols is not None:
+                draw = draw[:, cols[0] * cols[2]:(cols[0] + 1) * cols[2]]
+            mask = draw < keep
     return torch.where(mask.to(x.device), _mul_reciprocal(x, keep), 0.0)

@@ -24,6 +24,13 @@ the kernel (quantnet/ops/linear.py:228-253). The fp32 / bf16 and weight-only
 products run outside Pallas in the JAX package too: here they are PyTorch
 products with TF32 off.
 
+A layer on the model axis carries a `TensorShard` under 'tp'
+(parallel/tensor.py): a column shard runs the whole dispatch on its
+columns; a row shard makes each reduction over its K-slice global
+(`_row_int8`, `_row_fused_dynamic`, `row_epilogue`). A packed 4-bit weight
+(the s4 runtime) reaches the int8 GEMM kernel packed; the weight-only
+products widen it in torch ops; the fused dynamic kernel takes none.
+
 A float layer that carries a `ProbeGate` under 'probe' (the sensitivity
 sweep, quantize/policy.py) runs the lane its gate picks (`probe_lane`): its
 plain self, or its quantized lane through this same dispatch
@@ -33,6 +40,7 @@ differentiably (quantnet/ops/linear.py:129-152).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -41,6 +49,9 @@ import torch.nn.functional as F
 
 from quantnet_torch.core.config import DEFAULT_FLAGS, Flags
 from quantnet_torch.core.quantize import (
+    EPS,
+    SYM_MAX,
+    _mul_reciprocal,
     dynamic_quantize,
     fake_quant_act_ste,
     fake_quant_weight_ste,
@@ -49,6 +60,9 @@ from quantnet_torch.core.quantize import (
 )
 from quantnet_torch.core.types import ActQuant, DynamicActQuant, QTensor
 from quantnet_torch.ops.fused_dynamic_matmul import (
+    BF16_EPS,
+    _round_up,
+    block_k_for,
     fused_dynamic_gemm,
     fused_dynamic_gemm_plain,
 )
@@ -56,9 +70,15 @@ from quantnet_torch.ops.int8_matmul import (
     K_ALIGN,
     Epilogue,
     activation,
+    apply_epilogue,
+    finish_epilogue,
+    gemm_width,
+    int8_gemm,
     int8_gemm_epilogue,
     int8_gemm_epilogue_plain,
+    int8_gemm_plain,
 )
+from quantnet_torch.ops.layers import set_column_shard
 from quantnet_torch.ops.macs import record_linear
 from quantnet_torch.quantize.common import quantize_weight
 
@@ -83,9 +103,10 @@ class GemmConstants:
 
     b_nk:    int8[N, K'], the weight as the int8 GEMM kernel takes it: K
              zero-padded to a multiple of K_ALIGN (the same tensor as
-             `w.nk()` where K is one already, and always for a grouped weight)
+             `w.nk()` where K is one already, and always for a grouped
+             weight); a packed 4-bit weight's own uint8[N, K'/2] payload
     w_nk:    int8[N, K], the weight as the fused dynamic kernel takes it (a
-             dynamic dense layer), else None
+             dynamic dense layer with an int8-wide weight), else None
     w_scale: f32[N], the weight scale per column (a depthwise conv's per
              channel; f32[G, N] for a grouped weight, one row per group)
     cs:      f32[N], aq.scale * w.scale (static; aq.scale alone for a
@@ -109,8 +130,8 @@ def gemm_constants(layer: dict) -> GemmConstants:
     """The GEMM constants of a quantized layer {'w' QTensor, 'aq', 'wsum'
     (static), optional 'b'}. Built again if any of those is replaced."""
     w, aq, b = layer["w"], layer["aq"], layer.get("b")
-    n = w.values.shape[-1]
-    k = w.values.numel() // n
+    n = w.shape[-1]
+    k = math.prod(w.shape) // n
     bias = None if b is None else _per_column(b, n)
     if w.group_size is not None:
         # W4A8: the kernel's grouped mode takes K as it is (whole groups),
@@ -123,11 +144,11 @@ def gemm_constants(layer: dict) -> GemmConstants:
             bias=bias, group=w.group_size,
         )
     pad = -k % K_ALIGN
-    if pad == 0:
+    if pad == 0 or w.is_packed:
         b_nk = w.nk()
     else:
         b_nk = F.pad(w.values.reshape(k, n).t(), (0, pad)).contiguous()
-    dense_dynamic = isinstance(aq, DynamicActQuant) and w.values.ndim == 2
+    dense_dynamic = isinstance(aq, DynamicActQuant) and len(w.shape) == 2 and not w.is_packed
     w_scale = _per_column(w.scale, n)
     cs = zpw = None
     if isinstance(aq, ActQuant):
@@ -191,8 +212,8 @@ def int8_matmul(qx: torch.Tensor, layer: dict, flags: Flags, epi: Epilogue) -> t
     `epi` fused -> epi.out[M,N]. K is zero-padded to the kernel's K_ALIGN
     (the weight's padded copy is one of the layer's GEMM constants)."""
     b = _constants(layer).b_nk
-    if qx.shape[1] != b.shape[1]:
-        qx = F.pad(qx, (0, b.shape[1] - qx.shape[1]))
+    if qx.shape[1] != gemm_width(b):
+        qx = F.pad(qx, (0, gemm_width(b) - qx.shape[1]))
     gemm = int8_gemm_epilogue_plain if flags.plain else int8_gemm_epilogue
     return gemm(qx.contiguous(), b, epi)
 
@@ -264,6 +285,71 @@ def float_epilogue(y: torch.Tensor, b, act, out_quant) -> torch.Tensor:
     return maybe_requantize(activation(y, act), out_quant)
 
 
+def row_epilogue(acc: torch.Tensor, epi: Epilogue) -> torch.Tensor:
+    """A row shard's epilogue, applied once after the model axis's reduction
+    (the elementwise work that XLA runs after its psum): an int32
+    accumulator through `apply_epilogue` (- zpw, the scale, bias,
+    activation, the store), or the grouped mode's f32 sum over the groups
+    times the activation scale, then the rest. The same elementwise steps
+    as the kernel's fused store, so a reduced int32 accumulator gives its
+    bits."""
+    if acc.dtype == torch.int32:
+        return apply_epilogue(acc, epi)
+    return finish_epilogue(acc * epi.cs, epi)
+
+
+def _row_int8(qx: torch.Tensor, layer: dict, shard, flags: Flags, epi: Epilogue) -> torch.Tensor:
+    """An int8 layer on a row shard: this rank's K-slice product by the int8
+    GEMM kernel, reduced over the model axis, then `row_epilogue`. The int32
+    accumulator is summed exactly (the result is the one-rank layer's, bit
+    for bit); the grouped mode stores each rank's f32 sum over its whole
+    groups, added in rank order (((g0 + g1) + (g2 + g3)) against the one
+    rank's ((g0 + g1) + g2) + g3)."""
+    b = _constants(layer).b_nk
+    if qx.shape[1] != gemm_width(b) and epi.group is None:
+        qx = F.pad(qx, (0, gemm_width(b) - qx.shape[1]))
+    if epi.group is None:
+        gemm = int8_gemm_plain if flags.plain else int8_gemm
+        return row_epilogue(shard.int_sum(gemm(qx.contiguous(), b)), epi)
+    ones = torch.ones((b.shape[0],), dtype=torch.float32, device=qx.device)
+    partial = Epilogue(cs=ones, group=epi.group, gs=epi.gs, gzpw=epi.gzpw)
+    gemm = int8_gemm_epilogue_plain if flags.plain else int8_gemm_epilogue
+    return row_epilogue(shard.leave(gemm(qx.contiguous(), b, partial)), epi)
+
+
+def _row_fused_dynamic(x: torch.Tensor, layer: dict, shard, flags: Flags, relu: bool) -> torch.Tensor:
+    """The fused dynamic GEMM's function (fused_dynamic_gemm_plain) on a row
+    shard. Its quantization blocks (block_k_for of the global K) may
+    straddle the shards, so each (row, block) absmax is taken over the model
+    axis; each rank quantizes its part of the block with that scale by the
+    kernel's own steps, multiplies it by the int8 GEMM kernel (int32 store),
+    and the int32 partials are summed exactly; the block's scale, the
+    weight scale and the bias follow once: the one-rank result, bit for
+    bit."""
+    g = _constants(layer)
+    m, n = x.shape[0], g.w_scale.shape[0]
+    lo, hi = shard.k_range
+    bf16 = x.dtype == torch.bfloat16
+    bk = block_k_for(shard.k)
+    pk = _round_up(_round_up(shard.k, 128), bk)
+    xf = x.float()
+    gemm = int8_gemm_plain if flags.plain else int8_gemm
+    acc = torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    for k0 in range(0, pk, bk):
+        a, e = max(k0, lo) - lo, min(k0 + bk, hi) - lo
+        xb = xf[:, a:max(a, e)]
+        amax = (torch.amax(torch.abs(xb), dim=1, keepdim=True) if xb.shape[1]
+                else torch.zeros((m, 1), device=x.device))
+        s = _mul_reciprocal(torch.clamp_min(shard.max(amax), BF16_EPS if bf16 else EPS), SYM_MAX)
+        quot = (xb / s.bfloat16().float()).bfloat16().float() if bf16 else xb / s
+        q = torch.clamp(torch.round(quot), -SYM_MAX, SYM_MAX).to(torch.int8)
+        part = (gemm(q.contiguous(), g.w_nk[:, a:e].contiguous()) if xb.shape[1]
+                else torch.zeros((m, n), dtype=torch.int32, device=x.device))
+        acc = acc + shard.int_sum(part).float() * s
+    y = acc * g.w_scale + g.bias
+    return torch.relu(y) if relu else y
+
+
 def linear(
     layer: dict,
     x: torch.Tensor,
@@ -272,35 +358,60 @@ def linear(
     out_quant: Optional[ActQuant] = None,
     flags: Flags = DEFAULT_FLAGS,
 ) -> torch.Tensor:
-    """Apply a dense layer {'w', optional 'b', 'aq', 'wsum', 'gemm', 'probe', 'fq'} to x[M, K]."""
+    """Apply a dense layer {'w', optional 'b', 'aq', 'wsum', 'gemm', 'probe',
+    'fq', 'tp'} to x[M, K].
+
+    'tp' places the layer on the model axis (parallel/tensor.py): a column
+    shard computes its N / mp output columns as the whole layer would (its
+    input's gradient summed over the model axis); a row shard takes its
+    K-slice of the input, and every reduction over K is made global (the
+    absmax by an all-reduce max, the int32 accumulator by an int32 sum, an
+    f32 product by `ordered_sum`), with the bias and the epilogue applied
+    once after it."""
     w = layer["w"]
     b = layer.get("b")
+    shard = layer.get("tp")
+    row = shard is not None and shard.kind == "row"
+    if shard is not None:
+        set_column_shard(None if row else (shard.index, shard.size, w.shape[-1]))
+        if not row:
+            x = shard.enter(x)
     if layer.get("probe") is not None and not isinstance(w, QTensor):
+        if shard is not None:
+            raise NotImplementedError("the sensitivity probe runs on a layer that is not sharded")
         y = linear(probe_lane(layer), x, activation=activation, flags=flags)
         return maybe_requantize(y, out_quant)
     record_linear(x.shape[0], x.shape[1], w.shape[-1])
+    # An f32 product of a row shard is a partial sum: reduced before the bias.
+    reduce = shard.leave if row else (lambda y: y)
     fq = layer.get("fq")
     if fq is not None and not isinstance(w, QTensor):
         # QAT: the deployed layer simulated in f32 (see ops/conv.py).
         xq = fake_quant_act_ste(x, fq.scale, fq.zero_point) if fq.act_quant else x
-        wq = fake_quant_weight_ste(w, fq.per_channel, fq.weight_bits, fq.weight_group_size)
-        return float_epilogue(matmul_f32(xq, wq), b, activation, out_quant)
+        global_max = shard is not None and (row or not fq.per_channel)
+        wq = fake_quant_weight_ste(w, fq.per_channel, fq.weight_bits, fq.weight_group_size,
+                                   k=shard.k if row else None,
+                                   reduce_max=shard.max if global_max else None)
+        return float_epilogue(reduce(matmul_f32(xq, wq)), b, activation, out_quant)
     if not isinstance(w, QTensor):
         # bf16 params pull f32 activations down to bf16; f32 params leave the
         # activations' dtype as it is (the JAX package's narrow-dtype rule).
         # The product is accumulated and returned in f32 either way.
         cdtype = w.dtype if w.dtype == torch.bfloat16 else x.dtype
-        return float_epilogue(matmul_f32(x.to(cdtype), w.to(cdtype)), b, activation, out_quant)
+        y = reduce(matmul_f32(x.to(cdtype), w.to(cdtype)))
+        return float_epilogue(y, b, activation, out_quant)
 
     aq = layer.get("aq")
     if aq is None:
         # Weight-only: the product in the activation dtype, f32 accumulation.
         # A per-channel scale moves past the product, (x @ q) * s; a grouped
         # one varies along K, so the weight is dequantized first.
+        # A packed 4-bit payload is widened in torch ops for the product,
+        # as XLA converts the int4 payload in its graph.
         if w.group_size is not None:
-            y = matmul_f32(x, w.dequantize(x.dtype))
+            y = reduce(matmul_f32(x, w.dequantize(x.dtype)))
         else:
-            y = matmul_f32(x, w.values.to(x.dtype)) * w.scale
+            y = reduce(matmul_f32(x, w.int8_values().to(x.dtype))) * w.scale
         return float_epilogue(y, b, activation, out_quant)
 
     if w.group_size is not None and not isinstance(aq, ActQuant):
@@ -312,8 +423,15 @@ def linear(
         )
 
     if isinstance(aq, DynamicActQuant):
-        n = w.values.shape[-1]
+        n = w.shape[-1]
         if flags.dynamic_linear == "fused":
+            if w.is_packed:
+                raise NotImplementedError(
+                    "the fused dynamic GEMM takes an int8-wide weight: a packed 4-bit dynamic "
+                    "dense layer has no route (use dynamic_linear='unfused', K1's packed mode)")
+            if row:
+                y = _row_fused_dynamic(x, layer, shard, flags, relu_flag(activation))
+                return maybe_requantize(y, out_quant)
             # x goes in as it arrives, f32 or the bf16 handoff of the layer
             # before, as the JAX package feeds it (linear.py:208); the kernel
             # then takes its block scales on bf16 values as the Pallas body does.
@@ -324,9 +442,9 @@ def linear(
             return maybe_requantize(y, out_quant)
 
         # Per-row symmetric activation quant, int8 GEMM, epilogue in the kernel.
-        qx, x_scale = dynamic_quantize(x, axis=0)
+        qx, x_scale = dynamic_quantize(x, axis=0, reduce_max=shard.max if row else None)
         epi = int8_epilogue(layer, x_scale, activation=activation, out_quant=out_quant, per_row=True)
-        return int8_matmul(qx, layer, flags, epi)
+        return _row_int8(qx, layer, shard, flags, epi) if row else int8_matmul(qx, layer, flags, epi)
 
     if isinstance(aq, ActQuant):
         # Static: (qx - zp) @ qw = qx @ qw - zp * colsum(qw), the colsum
@@ -334,6 +452,6 @@ def linear(
         # each group's scale in the kernel's grouped mode).
         qx = x if x.dtype == torch.int8 else quantize_affine(x, aq.scale, aq.zero_point)
         epi = int8_epilogue(layer, activation=activation, out_quant=out_quant)
-        return int8_matmul(qx, layer, flags, epi)
+        return _row_int8(qx, layer, shard, flags, epi) if row else int8_matmul(qx, layer, flags, epi)
 
     raise TypeError(f"unsupported activation-quant leaf {type(aq).__name__}")

@@ -1,2 +1,3 @@
-"""Data parallelism on torch.distributed: meshes, placement and collectives
-(`mesh.py`), and the data-parallel train and eval steps (`steps.py`)."""
+"""Parallelism on torch.distributed: meshes, placement and collectives
+(`mesh.py`), the model axis's tensor parallelism (`tensor.py`), and the
+train and eval steps over a process mesh (`steps.py`)."""

@@ -18,6 +18,16 @@ batch, as the JAX pjit step equals its single-device step:
 The eval step sums top-1 and top-5 hits, valid rows and the loss of the
 valid rows across ranks: the counts exactly.
 
+On a dp x mp mesh (parallel/tensor.py) the data-axis sums above (BN's
+statistics, the gradient average, the loss, the eval counts) run over the
+data group alone: the ranks of a model group hold the same rows, and each
+row is counted once. A replicated leaf's gradient is model index 0's on
+every rank of a model group (broadcast over the model axis: on the CPU the
+ranks compute the same bits, since the model axis's sums are ordered, but a
+card's conv backward need not), so the replicated leaves stay bit-identical;
+where the optimizer clips by global norm, a split leaf's squares are summed
+over the model axis and a replicated leaf is counted once.
+
 The JAX package selects each step's rows from a device-resident split with
 a shard-local shuffle. The port has no resident split: each rank keeps its
 contiguous, wrap-padded slice of the split on the host (`resident_rows`)
@@ -25,6 +35,7 @@ and takes the same local rows (`train_selection`, `eval_selection`).
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, Tuple
 
 import numpy as np
@@ -34,6 +45,7 @@ import torch.nn.functional as F
 from quantnet_torch.core.config import no_tf32
 from quantnet_torch.ops.layers import sharded_batch
 from quantnet_torch.parallel.mesh import Mesh, ordered_sum
+from quantnet_torch.parallel.tensor import global_norm_sq, model_broadcast, sharded_leaves
 
 
 def check_step_mesh(mesh: Mesh) -> None:
@@ -68,7 +80,21 @@ def train_step(mesh: Mesh, apply_fn: Callable, opt, params, state, opt_state, le
         if mesh.size > 1:
             flat = ordered_sum(mesh, torch.cat([g.reshape(-1) for g in grads])) / mesh.size
             grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
-        opt.update(leaves, grads, opt_state)
+        norm_sq = None
+        if mesh.model_size > 1:
+            split = sharded_leaves(params, True)
+            if len(split) != len(leaves):
+                raise ValueError("on a model axis the step takes leaves = tensor_leaves(params)")
+            # A replicated leaf is one logical weight: every rank of a model
+            # group applies model index 0's gradient (a card's backward, a
+            # conv's weight gradient by atomics, need not give two ranks the
+            # same bits for the same inputs).
+            rep = [i for i, sp in enumerate(split) if not sp]
+            flat = model_broadcast(mesh, torch.cat([grads[i].reshape(-1) for i in rep]))
+            for i, f in zip(rep, flat.split([grads[i].numel() for i in rep])):
+                grads[i] = f.view_as(grads[i])
+            norm_sq = functools.partial(global_norm_sq, mesh, split=split)
+        opt.update(leaves, grads, opt_state, norm_sq)
     with torch.no_grad():
         acc = (logits.argmax(-1) == labels).float().mean()
         both = ordered_sum(mesh, torch.stack([loss.detach(), acc])) / mesh.size

@@ -1,7 +1,7 @@
 """Shared helpers of the quantization transforms (counterpart of
-quantnet/quantize/common.py:18-87, 154-205): layer walking, weight
-quantization, weight column sums, first / last layer resolution and the
-per-layer policy lookup.
+quantnet/quantize/common.py:18-113, 154-205): layer walking, weight
+quantization, weight column sums, the s4 runtime payload, first / last
+layer resolution and the per-layer policy lookup.
 
 A "layer" is any dict in the params tree holding key 'w'; layers are
 addressed by path ('conv1', 'layer3/2/conv2').
@@ -76,6 +76,36 @@ def weight_colsum(qw: QTensor) -> torch.Tensor:
         g = qw.group_size
         return v.reshape(v.shape[0] // g, g, *v.shape[1:]).sum(dim=1, dtype=torch.int32)
     return v.sum(dim=tuple(range(v.ndim - 1)), dtype=torch.int32)
+
+
+def s4_runtime_tree(params: dict) -> dict:
+    """Deployment-time transform (quantnet/quantize/common.py:90-113): every
+    4-bit weight's payload nibble-packed (QTensor.packed), so it occupies 4
+    bits in device memory; 8-bit (and int4-guarded) layers are untouched.
+    The layers' GEMM constants are made again from the packed weight: K1
+    reads the packed operand itself (its packed-B mode), so no int8-wide
+    copy of a 4-bit weight stays on the device. The weight-only ops and K4
+    widen the payload transiently, in torch ops, where XLA converts the int4
+    payload in its graph. Forwards are bit-identical to the int8-wide
+    tree's. Applied after load or quantize; artifacts stay in their disk
+    format.
+
+    The JAX package's `s4_io_supported` probe asks whether a TPU stack can
+    pass int4 arrays into jit; a uint8 tensor has no such limit, so the port
+    needs no probe."""
+    from quantnet_torch.ops.linear import gemm_constants, needs_gemm_constants
+
+    def q(path: str, layer: dict) -> dict:
+        w = layer.get("w")
+        if not (isinstance(w, QTensor) and w.bits == 4 and not w.is_packed):
+            return layer
+        out = dict(layer)
+        out["w"] = w.packed()
+        if needs_gemm_constants(out):
+            out["gemm"] = gemm_constants(out)
+        return out
+
+    return walk_layers(params, q)
 
 
 # Model-order anchors of the package's naming: stems first, classifier heads

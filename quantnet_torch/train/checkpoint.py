@@ -68,7 +68,7 @@ def _flatten(tree: Any, prefix: str, arrays: dict, manifest: dict) -> None:
         manifest[prefix] = {"kind": "qtensor", "axis": tree.axis,
                             "has_zp": tree.zero_point is not None,
                             "bits": tree.bits, "group_size": tree.group_size}
-        values = _numpy(tree.values)
+        values = _numpy(tree.int8_values())
         if tree.bits == 4:
             manifest[prefix]["shape"] = list(values.shape)
             values = pack_int4(values)

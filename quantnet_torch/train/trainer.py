@@ -103,10 +103,13 @@ def warmup_cosine_decay_schedule(
     return schedule
 
 
-def _global_norm_clip(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+def _global_norm_clip(grads: List[torch.Tensor], max_norm: float,
+                      norm_sq: Optional[Callable] = None) -> List[torch.Tensor]:
     """optax.clip_by_global_norm: g where the global norm is below max_norm,
-    else (g / norm) * max_norm. Decided on the device (no host sync)."""
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    else (g / norm) * max_norm. Decided on the device (no host sync).
+    `norm_sq(grads)` gives the squared norm where the leaves are shards of
+    the model axis (parallel/tensor.py::global_norm_sq)."""
+    norm = torch.sqrt(norm_sq(grads) if norm_sq is not None else sum(torch.sum(g * g) for g in grads))
     keep = norm < max_norm
     return [torch.where(keep, g, (g / norm) * max_norm) for g in grads]
 
@@ -145,9 +148,10 @@ class Optimizer:
         return {"count": 0, "mu": zeros(), "nu": zeros(), "lr": float(_F32(self.lr))}
 
     @torch.no_grad()
-    def update(self, leaves: List[torch.Tensor], grads: List[torch.Tensor], state: dict) -> None:
+    def update(self, leaves: List[torch.Tensor], grads: List[torch.Tensor], state: dict,
+               norm_sq: Optional[Callable] = None) -> None:
         if self.clip:
-            grads = _global_norm_clip(grads, self.clip)
+            grads = _global_norm_clip(grads, self.clip, norm_sq)
         if self.kind == "sgd_cosine":
             step = -float(self.schedule(state["count"]))
             for p, g, t in zip(leaves, grads, state["trace"]):

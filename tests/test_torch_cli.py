@@ -160,9 +160,11 @@ def test_unported_schemes_and_flags_refused(pipeline, tmp_path, capsys):
     assert (defaults.equalize, defaults.adaround_steps, defaults.bias_correct, defaults.int4_guard,
             defaults.importance, defaults.optimized_low_tier) == (False, 0, False, 0.0, None,
                                                                    "weight_only")
-    with pytest.raises(SystemExit) as e:
-        main(["bench", "--s4-runtime", *d])
-    assert e.value.code == 2  # argparse refuses it
+    # bench --s4-runtime parses and benches (no sub-byte tier here: nothing
+    # to pack; tests/test_torch_s4_runtime.py benches one).
+    assert build_parser().parse_args(["bench", "--s4-runtime"]).s4_runtime
+    s4 = main(["bench", "--s4-runtime", "--batch-sizes", "1", "--iters", "1", "--warmup", "0", *d])
+    assert set(s4) == {"fp32", "static", "dynamic"}
     capsys.readouterr()
     with pytest.raises(ValueError, match=r"mesh 2x1 needs more than 1 devices"):
         main(["serve", "--data-parallel", "2", *d])

@@ -2,7 +2,7 @@
 tests/test_parallel.py and tests/test_multiprocess.py's two-process run).
 
 Meshes: the JAX shapes and errors, and the port's own refusals (a model
-axis, a mesh of both kinds). One spawned two-process gloo run
+axis on a local mesh, a mesh of both kinds). One spawned two-process gloo run
 (tests/torch_parallel_worker.py) is held:
 
   - sharded eval counts equal to the JAX `make_parallel_eval_step` on the
@@ -77,8 +77,19 @@ def test_mesh_too_big_raises():
 
 
 def test_model_axis_refused_by_name():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    """A model axis lives on a process mesh: a local mesh refuses one."""
+    with pytest.raises(ValueError, match="a local mesh has no model axis"):
         meshlib.make_mesh(2, 2, devices=[CPU] * 4)
+
+
+def test_process_mesh_reports_its_shape():
+    """Rank r of a 2x2 process mesh: data index r // 2, model index r % 2
+    (the JAX reshape of the devices to (dp, mp)); tests/test_torch_dryrun.py
+    spawns the four ranks."""
+    m = meshlib.Mesh("processes", (CPU,), 2, 1, "gloo", 2, 0)
+    assert m.shape == {"data": 2, "model": 2} == dict(zip(("data", "model"),
+                                                          jmesh.make_mesh(2, 2).devices.shape))
+    assert meshlib.shard_batch(m, np.arange(8)).tolist() == [4, 5, 6, 7]
 
 
 def test_backend_choice(monkeypatch):
