@@ -25,9 +25,9 @@ one line with its wall time:
                 int32, static int8, dynamic bf16, rounding ties, past the
                 fast division's range; and at its tiling edge cases (torch
                 pads at stride 2, odd H and W, N = 1, C = 8 and 20, wide)
-  5. k1 stores  one forward of each model with every K1, K3 and K4 launch
-                held against its plain version on the same inputs, bit for
-                bit
+  5. k1 stores  one forward of each model with every K1, K2, K3 and K4
+                launch held against its plain version on the same inputs,
+                bit for bit
   6. fused      K2 bit-equal to its plain version (fc1 / fc2 at bs1024 and
                 bs32, MobileNetV2's fc at bs256; f32 and bf16 x; edge cases)
   7. boundary   K3 bit-equal, both variants, at its test and ResNet-50 shapes
@@ -54,8 +54,10 @@ one line with its wall time:
  12. serve      the static convnet, static ResNet-50, the dynamic convnet and
                 static MobileNetV2 served over the u8 wire through one CUDA
                 graph per bucket: every replay bit-equal to an eager forward
-                and launching, in a device trace, what the wrappers count in
-                it; trickle and burst loads; every served request bit-equal
+                and launching, in a device trace of a replay on new inputs
+                that is itself bit-equal to their eager forward, what the
+                wrappers count in it; trickle and burst loads; every served
+                request bit-equal
  13. observers  static ResNet-50 calibrated with the histogram and MSE observers
  14. accuracy   the accuracy tools at full width: MobileNetV2 1.0's optimized
                 sweep (53 gated forwards, the quantized lanes through K1, K4
@@ -118,13 +120,24 @@ one line with its wall time:
                 against one process's
  25. dryrun multichip  quantnet_torch.entry.dryrun_multichip(4): a 2x2 mesh
                 of four ranks on the one card, the JAX line's keys checked
- 26. kernels    one JSON line with an entry per kernel and path (K1 on four
+ 26. cli imagenet  (after [cli experiment]) the ImageNet track through the
+                CLI: --dataset imagenet resolves to ResNet-50, 224, 1000;
+                experiment --importance static_map at full width on 256 / 256
+                synthetic images; the static, dynamic and W4A8 artifacts'
+                bs128 forwards, each launch counted against IMAGENET_LAUNCHES
+                (static 54 K1: its int8 7x7 stem, 52 convs, the fc; 15 K3)
+                and held bit-equal, the static logits bit-equal to the plain
+                run; the optimized tree equal to quantize
+                --importance static_map's; evaluate on a tiny decoded
+                ImageFolder (or, without PIL, the loader naming it); p50 and
+                img/s at bs128 beside [resnet50 bench]'s
+ 27. kernels    one JSON line with an entry per kernel and path (K1 on four
                 paths, K1's grouped-K mode and its packed-B mode, normal and
                 grouped, K2, K3, K4), its numbers, its
                 launches through the serving engine, counted in device traces,
                 the [accuracy] runs' launches, the baked QAT trees' ones and
                 the data-parallel and tensor-parallel paths' (K1 on the
-                static convnet)
+                static convnet) and [cli imagenet]'s, by model and artifact
 Any failed check raises before the last line, which is the only place that
 prints {"ok": true, ...}. Nothing is written outside build/ (gitignored).
 """
@@ -1126,23 +1139,25 @@ def _store_name(epi) -> str:
 @contextlib.contextmanager
 def held_launches(torch):
     """Inside the scope, every launch of K1 (its grouped-K mode included),
-    K3 and K4 held against its plain version on the same inputs, bit for bit
-    (compared as integers, so -0 against +0 would count). Yields the record:
-    per kernel, the calls by shape with their count and one call's inputs
-    (K1: (M, K, N, store) -> [count, a, b, epi]; K4: (shape, stride, store)
-    -> [count, x, w, stride, pads, pad_value, epi]; K3: (shape, dtype) ->
-    [count, *args]), and the largest |kernel - plain|."""
+    K2, K3 and K4 held against its plain version on the same inputs, bit for
+    bit (compared as integers, so -0 against +0 would count). Yields the
+    record: per kernel, the calls by shape with their count and one call's
+    inputs (K1: (M, K, N, store) -> [count, a, b, epi]; K4: (shape, stride,
+    store) -> [count, x, w, stride, pads, pad_value, epi]; K3: (shape,
+    dtype) -> [count, *args]; K2: (M, K, N, x dtype) -> [count, *args]), and
+    the largest |kernel - plain|."""
     from quantnet_torch.models import resnet as resnet_mod
     from quantnet_torch.ops import conv as ops_conv
     from quantnet_torch.ops import linear as ops_linear
     from quantnet_torch.ops.depthwise_conv import depthwise_conv, depthwise_conv_plain
+    from quantnet_torch.ops.fused_dynamic_matmul import fused_dynamic_gemm, fused_dynamic_gemm_plain
     from quantnet_torch.ops.int8_matmul import int8_gemm_epilogue, int8_gemm_epilogue_plain
     from quantnet_torch.ops.residual_boundary import residual_boundary, residual_boundary_plain
 
     bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.int8: torch.int8,
             torch.int32: torch.int32}
-    rec = {"calls": {"int8_gemm": {}, "depthwise_conv": {}, "residual_boundary": {}},
-           "err": {"int8_gemm": 0.0, "depthwise_conv": 0.0, "residual_boundary": 0.0}}
+    names = ("int8_gemm", "fused_dynamic_gemm", "depthwise_conv", "residual_boundary")
+    rec = {"calls": {n: {} for n in names}, "err": {n: 0.0 for n in names}}
 
     def held(name, key, got, ref, args):
         bad = int((got.contiguous().view(bits[got.dtype]) != ref.contiguous().view(bits[ref.dtype])).sum())
@@ -1165,7 +1180,13 @@ def held_launches(torch):
         return held("residual_boundary", (tuple(args[0].shape), str(args[1].dtype)),
                     residual_boundary(*args), residual_boundary_plain(*args), args)
 
-    ops_linear.int8_gemm_epilogue, ops_conv.depthwise_conv, resnet_mod.residual_boundary = k1, k4, k3
+    def k2(*args):
+        x, w_nk = args[0], args[1]
+        return held("fused_dynamic_gemm", (x.shape[0], x.shape[1], w_nk.shape[0], str(x.dtype)),
+                    fused_dynamic_gemm(*args), fused_dynamic_gemm_plain(*args), args)
+
+    ops_linear.int8_gemm_epilogue, ops_linear.fused_dynamic_gemm = k1, k2
+    ops_conv.depthwise_conv, resnet_mod.residual_boundary = k4, k3
     try:
         yield rec
         torch.cuda.synchronize()
@@ -1173,6 +1194,7 @@ def held_launches(torch):
         ops_linear.int8_gemm_epilogue = int8_gemm_epilogue
         ops_conv.depthwise_conv = depthwise_conv
         resnet_mod.residual_boundary = residual_boundary
+        ops_linear.fused_dynamic_gemm = fused_dynamic_gemm
 
 
 def held_counts(rec) -> dict:
@@ -1185,13 +1207,13 @@ def held_counts(rec) -> dict:
 
 
 def k1_stores_phase(torch, models):
-    """One forward of each model with every K1, K3 and K4 launch held
+    """One forward of each model with every K1, K2, K3 and K4 launch held
     against its plain version (held_launches). Returns, per path, the K1
     calls by (M, K, N, store) with their count and one call's inputs, and
     MobileNetV2's K4 calls the same way, for [times]; and the largest
     |kernel - plain| of K1 and K4."""
     t0 = time.perf_counter()
-    found, dw_found, errors, k3 = {}, {}, {}, 0
+    found, dw_found, errors, k3, k2 = {}, {}, {}, 0, 0
     for path, m in models.items():
         with held_launches(torch) as rec:
             m["apply"](m["q"], m["qs"], m["x"])
@@ -1200,6 +1222,7 @@ def k1_stores_phase(torch, models):
             dw_found[path] = rec["calls"]["depthwise_conv"]
         errors[path] = {"k1": rec["err"]["int8_gemm"], "k4": rec["err"]["depthwise_conv"]}
         k3 += held_counts(rec)["residual_boundary"]
+        k2 += held_counts(rec)["fused_dynamic_gemm"]
     per_path = "; ".join(
         f"{p} {sum(c[0] for c in v.values())} launches at {len(v)} shapes "
         f"({', '.join(sorted({k[3] for k in v}))})" for p, v in found.items())
@@ -1207,7 +1230,8 @@ def k1_stores_phase(torch, models):
                    f"({', '.join(sorted({k[2] for k in v}))})" for p, v in dw_found.items())
     phase("k1 stores", t0, f"every K1 launch of a forward bit-equal to int8_gemm_epilogue_plain: "
           f"{per_path}; every K4 launch bit-equal to depthwise_conv_plain: {dw}; every K3 launch "
-          f"bit-equal to residual_boundary_plain: {k3}")
+          f"bit-equal to residual_boundary_plain: {k3}; every K2 launch bit-equal to "
+          f"fused_dynamic_gemm_plain: {k2}")
     return found, dw_found, errors
 
 
@@ -1316,7 +1340,7 @@ def resnet_phase(torch, dev, m):
 
     t1 = time.perf_counter()
     bench = InferenceBenchmark(image_size=RESNET_IMAGE, warmup=5, iters=30)
-    stats = bench.measure(resnet.apply, qparams, qstate, RESNET_BATCH)
+    stats = m["bench_stats"] = bench.measure(resnet.apply, qparams, qstate, RESNET_BATCH)
     phase("resnet50 bench", t1, f"bs{RESNET_BATCH} {RESNET_IMAGE}x{RESNET_IMAGE}: p50 "
           f"{stats['p50_ms']:.4f} ms, {stats['images_per_s_p50']:.1f} img/s (mean "
           f"{stats['mean_ms']:.4f} ms, min {stats['min_ms']:.4f}, max {stats['max_ms']:.4f}, "
@@ -1643,21 +1667,30 @@ def _load_line(kind, n, seconds, lat, stats, occ) -> str:
 TRACE_TRIES = 3
 
 
-def _traced(fn, retraced: list):
-    """bench/trace.py's trace(fn), taken again (up to TRACE_TRIES times in
-    all) where the profiler recorded no device activity at all: a trace
-    that lost every record is a failure of the instrument, not of the path
-    (on an H100 CUPTI has dropped 10 of a replay's 53 records, and once
-    every record of one replay). A trace with any device row is read as it
-    is. Appends the retakes to `retraced`; returns (fn's result,
-    the profile)."""
-    from quantnet_torch.bench.trace import device_rows, trace
+def _traced(fn, verify, retraced: list, label: str):
+    """bench/trace.py's trace of fn(i), the i-th try, taken again (up to
+    TRACE_TRIES times in all) where the profiler recorded none of the port's
+    kernels. Each try runs on inputs that differ from the ones its graphs
+    ran before, and verify(i, out) holds that try's own output against an
+    eager reference first, raising where it differs: a graph that launched
+    nothing would leave the earlier result in its output buffer and fail
+    there. So a retake follows only a run whose kernels demonstrably ran,
+    and blames the instrument (on an H100 CUPTI has dropped 10 of a replay's
+    53 records, every record of one replay, and every kernel record of one
+    whose other device rows it kept). Each retaken trace's device rows are
+    printed. Appends the retakes to `retraced`; returns (fn's result, the
+    profile)."""
+    from quantnet_torch.bench.trace import device_rows, kernel_launches, trace
 
     for i in range(TRACE_TRIES):
-        out, prof = trace(fn)
-        if device_rows(prof) or i == TRACE_TRIES - 1:
+        out, prof = trace(lambda: fn(i))
+        verify(i, out)
+        if any(kernel_launches(prof).values()) or i == TRACE_TRIES - 1:
             retraced.append(i)
             return out, prof
+        rows = [(e.key, e.count) for e in device_rows(prof)]
+        print(f"  {label}: trace {i + 1} of {TRACE_TRIES} recorded none of the port's kernels, "
+              f"its output right; the device rows it kept: {rows}", flush=True)
 
 
 def serve_phase(torch, dev, models):
@@ -1700,13 +1733,19 @@ def serve_phase(torch, dev, models):
             capture_s = time.perf_counter() - t0
             g = torch.Generator().manual_seed(SEED + 3)
             for b in eng.buckets:
-                x = torch.randint(0, 256, (b, *shape), generator=g, dtype=torch.uint8).to(dev)
+                x, *fresh = (torch.randint(0, 256, (b, *shape), generator=g, dtype=torch.uint8).to(dev)
+                             for _ in range(1 + TRACE_TRIES))
                 got, want = eng.replay(x), eng.forward(x)
                 err = (got - want).abs().max().item()
                 check(torch.equal(got, want), f"[serve] {path} bucket {b}: replay vs eager forward "
                       f"max |diff| {err}, not bit-equal")
                 eager = counted(lambda: eng.forward(x))
-                _, prof = _traced(lambda: eng.replay(x), retraced)
+
+                def same(i, out, b=b, fresh=fresh):
+                    check(torch.equal(out, eng.forward(fresh[i])), f"[serve] {path} bucket {b}: the "
+                          f"traced replay (try {i + 1}) vs eager forward of its own input, not bit-equal")
+
+                _, prof = _traced(lambda i: eng.replay(fresh[i]), same, retraced, f"[serve] {path} bucket {b}")
                 per_replay = kernel_launches(prof)
                 check(per_replay == eager and any(eager.values()),
                       f"[serve] {path} bucket {b}: one replay launched {per_replay} in its trace, "
@@ -1722,8 +1761,17 @@ def serve_phase(torch, dev, models):
             called = counted(lambda: runs.update(_serve_loads(eng, loads, wait_ms)))
             check(not any(called.values()), f"[serve] {path}: the wrappers launched {called} during "
                   "the loads: a batch ran outside its graph")
-            # The same loads again under a device trace, for the launches.
-            traced_runs, prof = _traced(lambda: _serve_loads(eng, loads, wait_ms), retraced)
+            # The same loads again under a device trace, for the launches;
+            # each batch's images differ from the last batch's in its bucket.
+
+            def same_loads(i, traced):
+                for kind, _ in loads:
+                    check(np.array_equal(np.stack(runs[kind][0]), np.stack(traced[kind][0])),
+                          f"[serve] {path} {kind}: the traced run's logits (try {i + 1}) differ from "
+                          "the untraced run's")
+
+            traced_runs, prof = _traced(lambda i: _serve_loads(eng, loads, wait_ms), same_loads, retraced,
+                                        f"[serve] {path} loads")
             launches = kernel_launches(prof)
             batches = sum(r[3]["batches"] for r in traced_runs.values())
             want = {k: n * batches for k, n in per_forward.items()}
@@ -1732,8 +1780,6 @@ def serve_phase(torch, dev, models):
             lines = []
             for kind, imgs in loads:
                 served = np.stack(runs[kind][0])
-                check(np.array_equal(served, np.stack(traced_runs[kind][0])),
-                      f"[serve] {path} {kind}: the traced run's logits differ from the untraced run's")
                 ref = []
                 for i in range(0, len(imgs), buckets[-1]):
                     chunk = np.zeros((buckets[-1], *shape), np.uint8)
@@ -1759,7 +1805,7 @@ def serve_phase(torch, dev, models):
               f"{capture_s:.2f} s, every bucket's replay bit-equal to the eager forward and "
               f"launching its kernels in a trace; no wrapper called during the loads; traced loads "
               f"launched {launches} in {batches} batches ({per_forward} a replay); traces retaken "
-              f"for an empty record so far: {sum(retraced)}; " + "; ".join(lines))
+              f"for no kernel record so far: {sum(retraced)}; " + "; ".join(lines))
     return out
 
 
@@ -2990,6 +3036,8 @@ def serve_dp_phase(torch, dev, models, card) -> dict:
     g = torch.Generator().manual_seed(SEED + 8)
     probes = {b: torch.randint(0, 256, (b, *shape), generator=g, dtype=torch.uint8).to(dev)
               for b in (1, 2, 8, 32, 128)}
+    fresh = [torch.randint(0, 256, (128, *shape), generator=g, dtype=torch.uint8).to(dev)
+             for _ in range(TRACE_TRIES)]
     runs = {}
     for label, kw in (("one replica", dict(device=dev)), ("two shards", dict(mesh=make_mesh(devices=[dev, dev])))):
         with InferenceEngine(m["apply"], m["q"], m["qs"], image_shape=shape, buckets=SERVE_BUCKETS,
@@ -3001,7 +3049,13 @@ def serve_dp_phase(torch, dev, models, card) -> dict:
                 check(torch.equal(got, eng.forward(probes[b])),
                       f"[serve dp] {label} bucket {b}: replay vs eager forward not bit-equal")
                 replays[b] = got
-            _, prof = _traced(lambda: eng.replay(probes[eng.buckets[-1]]), [])
+
+            def same(i, out, label=label, eng=eng):
+                check(torch.equal(out, eng.forward(fresh[i])), f"[serve dp] {label}: the traced "
+                      f"replay (try {i + 1}) vs eager forward of its own input, not bit-equal")
+
+            check(eng.buckets[-1] == 128, f"[serve dp] {label}: buckets {eng.buckets}")
+            _, prof = _traced(lambda i: eng.replay(fresh[i]), same, [], f"[serve dp] {label}")
             runs[label] = dict(buckets=eng.buckets, replays=replays, launches=kernel_launches(prof),
                                loads=_serve_loads(eng, loads, 2.0))
     one, two = runs["one replica"], runs["two shards"]
@@ -3480,6 +3534,196 @@ def cli_experiment_phase(torch, card) -> None:
               f"{len(rows)} rows in benchmark.json; {tiers}")
 
 
+# [cli imagenet]: each artifact's launches of one bs128 forward, as the
+# wrappers count them. static: K1 at the int8 7x7 stem, the 52 convs and the
+# fc, K3 at the 15 block boundaries; dynamic: K1 at the stem and the 52
+# convs, K2 at the fc, no K3 (its identities stay f32); W4A8: K1 at the stem
+# and the 52 convs and its grouped-K mode at the fc (counted among K1's too).
+IMAGENET_LAUNCHES = {
+    "static": {"int8_gemm": 54, "int8_gemm_grouped": 0, "fused_dynamic_gemm": 0,
+               "residual_boundary": 15, "depthwise_conv": 0},
+    "dynamic": {"int8_gemm": 53, "int8_gemm_grouped": 0, "fused_dynamic_gemm": 1,
+                "residual_boundary": 0, "depthwise_conv": 0},
+    "w4a8": {"int8_gemm": 54, "int8_gemm_grouped": 1, "fused_dynamic_gemm": 0,
+             "residual_boundary": 15, "depthwise_conv": 0},
+}
+
+# [cli imagenet]: the ImageFolder written when PIL imports, (height, width)
+# of each class's JPEGs.
+IMAGENET_FILES = [[(375, 500), (500, 333), (240, 240)], [(180, 260), (600, 400), (224, 300)]]
+
+
+def _imagenet_folder(root) -> int:
+    """<root>/imagenet/val/<wnid>/*.JPEG of seeded random pixels; the count."""
+    import numpy as np
+    from PIL import Image
+
+    r = np.random.default_rng(0)
+    n = 0
+    for ci, files in enumerate(IMAGENET_FILES):
+        cdir = root / "imagenet" / "val" / f"n{ci:08d}"
+        cdir.mkdir(parents=True)
+        for h, w in files:
+            pixels = r.integers(0, 256, (h, w, 3)).astype(np.uint8)
+            Image.fromarray(pixels).save(cdir / f"ILSVRC2012_val_{n:08d}.JPEG", quality=90)
+            n += 1
+    return n
+
+
+def cli_imagenet_phase(torch, dev, card, resnet_stats) -> dict:
+    """[cli imagenet]: the ImageNet track through python -m quantnet_torch in
+    process. --dataset imagenet resolves to ResNet-50 at 224x224 with 1000
+    classes; experiment --importance static_map on the synthetic split (256 /
+    256 images) into a temporary directory under build/; the static
+    artifact's forward at bs128 with every count set to 0 just before it (54
+    K1: the experiment bakes the 7x7 stem int8, as the JAX CLI does without
+    --skip-first-layer; 15 K3), then under held_launches, then its plain run, bit for bit;
+    the dynamic and W4A8 artifacts' K1, K2 and grouped-K1 launches counted
+    and held the same way; the experiment's optimized tree against quantize
+    --scheme optimized --importance static_map on a copy of its fp32
+    artifact, leaf for leaf; and the real-data branch: evaluate on a tiny
+    ImageFolder where PIL imports, else the loader naming PIL."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from quantnet_torch.cli.main import _resolve_defaults, build_parser
+    from quantnet_torch.cli.main import main as cli
+    from quantnet_torch.core.config import Flags
+    from quantnet_torch.data import datasets
+    from quantnet_torch.models import resnet
+    from quantnet_torch.train.checkpoint import load_artifact
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    args = build_parser().parse_args(["experiment", "--dataset", "imagenet"])
+    _resolve_defaults(args)
+    resolved = (args.model, args.image_size, args.num_classes)
+    check(resolved == ("resnet50", 224, 1000), f"[cli imagenet] --dataset imagenet resolved to {resolved}")
+    root = pathlib.Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root / "build") as d:
+        data = ["--dataset", "imagenet", "--data-dir", f"{d}/data", "--synthetic-train-size", "256",
+                "--synthetic-test-size", "256", "--calibration-batches", "2"]
+        dirs = ["--save-dir", f"{d}/saved", "--results-dir", f"{d}/results"]
+        t1 = time.perf_counter()
+        out = cli(["experiment", "--importance", "static_map", "--epochs", "1", "--qat-epochs", "1",
+                   "--batch-sizes", "1,128", "--warmup", "5", "--iters", "20", *data, *dirs])
+        experiment_s = time.perf_counter() - t1
+        acc, bench = out["accuracy"], out["benchmark"]
+        check(list(acc) == list(EXPERIMENT_SCHEMES) and all(r["n"] == 256 for r in acc.values()),
+              f"[cli imagenet] evaluated {[(k, r['n']) for k, r in acc.items()]}")
+        md = (pathlib.Path(d) / "results" / "detailed_analysis_report.md").read_text()
+        rows = [ln.split(" | ")[0][2:] for ln in md.splitlines()
+                if ln.startswith("| ") and not ln.startswith("| model")]
+        check(rows == list(EXPERIMENT_SCHEMES), f"[cli imagenet] report rows {rows}")
+
+        # The static artifact at bs128 on the split's first images.
+        _, test = datasets.load_imagenet(f"{d}/data", image_size=224, synthetic_train_size=256,
+                                         synthetic_test_size=256, num_classes=1000)
+        x = torch.from_numpy(test.take(np.arange(RESNET_BATCH))).to(dev)
+        trees = {name: load_artifact(f"{d}/saved/{name}", device=dev)[0] for name in IMAGENET_LAUNCHES}
+        launches, held, logits = {}, {}, {}
+        for name, tree in trees.items():
+            torch.cuda.synchronize()
+            _zero_launch_counts()
+            logits[name], _ = resnet.apply(tree["params"], tree["state"], x)
+            torch.cuda.synchronize()
+            launches[name] = _launch_counts()
+            with held_launches(torch) as rec:
+                again, _ = resnet.apply(tree["params"], tree["state"], x)
+            held[name] = held_counts(rec)
+            check(all(held[name][k] == launches[name][k] for k in held[name]),
+                  f"[cli imagenet] {name}: held launches {held[name]}, counted {launches[name]}")
+            check(torch.equal(again.view(torch.int32), logits[name].view(torch.int32)),
+                  f"[cli imagenet] {name}: the held forward's logits differ")
+            check(launches[name] == IMAGENET_LAUNCHES[name], f"[cli imagenet] {name} ResNet-50 "
+                  f"launches {launches[name]}, expected {IMAGENET_LAUNCHES[name]}")
+        static = launches["static"]
+        st = trees["static"]
+        ref, _ = resnet.apply(st["params"], st["state"], x, flags=Flags(plain=True))
+        lg = logits["static"]
+        check(tuple(lg.shape) == (RESNET_BATCH, 1000) and bool(torch.isfinite(lg).all()),
+              f"[cli imagenet] static logits {tuple(lg.shape)}")
+        check(torch.equal(lg.view(torch.int32), ref.view(torch.int32)),
+              f"[cli imagenet] static vs its plain run: max |diff| {(lg - ref).abs().max().item()!r}")
+
+        # Queue 3 item 17 on the card: the experiment's optimized tree is
+        # quantize --scheme optimized --importance static_map's.
+        q = pathlib.Path(d) / "quantize" / "saved"
+        q.mkdir(parents=True)
+        for suffix in (".json", ".npz"):
+            shutil.copy(pathlib.Path(d) / "saved" / f"fp32{suffix}", q)
+        cli(["quantize", "--scheme", "optimized", "--importance", "static_map", *data,
+             "--save-dir", str(q), "--results-dir", f"{d}/quantize/results"])
+        a, b = pathlib.Path(d) / "saved" / "optimized", q / "optimized"
+        with np.load(f"{a}.npz") as za, np.load(f"{b}.npz") as zb:
+            check(sorted(za.files) == sorted(zb.files) and len(za.files) > 0,
+                  "[cli imagenet] optimized trees hold other leaves")
+            differ = [k for k in za.files if za[k].dtype != zb[k].dtype or not np.array_equal(za[k], zb[k])]
+            n_leaves = len(za.files)
+        check(not differ, f"[cli imagenet] optimized leaves differ from quantize --importance "
+              f"static_map's: {differ[:5]}")
+        meta_a, meta_b = (json.loads(p.with_suffix(".json").read_text())["metadata"] for p in (a, b))
+        check(meta_a == meta_b, "[cli imagenet] optimized metadata differ")
+        tiers = sorted(set(meta_a["policy"].values()))
+
+        # The real-data branch.
+        real = pathlib.Path(d) / "real"
+        try:
+            import PIL  # noqa: F401
+            pil = True
+        except ImportError:
+            pil = False
+        if pil:
+            n = _imagenet_folder(real)
+            ev = cli(["evaluate", "--models", "static", "--dataset", "imagenet", "--data-dir", str(real),
+                      "--save-dir", f"{d}/saved", "--results-dir", f"{d}/real_results"])
+            split = datasets.load_imagenet(str(real), image_size=224)[1]
+            check(split.raw_u8 is not None and split.images is None and len(split) == n
+                  and split.num_classes == len(IMAGENET_FILES),
+                  f"[cli imagenet] the decoded split: {split.name}, {len(split)} images, u8 "
+                  f"{split.raw_u8 is not None}")
+            lg_real, _ = resnet.apply(st["params"], st["state"],
+                                      torch.from_numpy(split.take(np.arange(n))).to(dev))
+            _, top1, top5 = _host_counts([lg_real], split.labels)
+            r = ev["static"]
+            check(r["n"] == n and r["top1"] == top1 / n and r["top5"] == top5 / n,
+                  f"[cli imagenet] evaluator top-1 {r['top1']} / top-5 {r['top5']} over {r['n']}, the "
+                  f"host counts {top1} / {top5} of {n}")
+            branch = (f"real data: PIL {PIL.__version__}, evaluate --dataset imagenet on {n} decoded "
+                      f"JPEGs ({len(IMAGENET_FILES)} classes, u8-resident), counts equal the host's")
+        else:
+            (real / "imagenet" / "val" / "n00000000").mkdir(parents=True)
+            (real / "imagenet" / "val" / "n00000000" / "x.JPEG").write_bytes(b"")
+            try:
+                datasets.load_imagenet(str(real), image_size=224)
+                raised = None
+            except ModuleNotFoundError as e:
+                raised = e
+            check(raised is not None and "PIL" in str(raised),
+                  f"[cli imagenet] a present val directory without PIL: {raised!r}")
+            branch = f"real data: no PIL; a present val directory raises {raised}"
+
+    s = bench["static"][f"bs{RESNET_BATCH}"]
+    rb = (f"{resnet_stats['p50_ms']:.4f} ms, {resnet_stats['images_per_s_p50']:.1f} img/s"
+          if resnet_stats else "not run")
+    dyn, w4 = held["dynamic"], held["w4a8"]
+    phase("cli imagenet", t0, f"{card}; --dataset imagenet -> {resolved}; experiment --importance "
+          f"static_map (ResNet-50 224x224, 1000 classes, 256 / 256 synthetic images) in "
+          f"{experiment_s:.2f} s, {len(acc)} artifacts evaluated, report written; static bs"
+          f"{RESNET_BATCH}: K1 {static['int8_gemm']} and K3 {static['residual_boundary']} launches, "
+          f"each bit-equal to its plain version, logits bit-equal to the plain run; dynamic K1 "
+          f"{dyn['int8_gemm']}, K2 {dyn['fused_dynamic_gemm']}, K3 {dyn['residual_boundary']}; w4a8 "
+          f"K1 {w4['int8_gemm']} (grouped {w4['int8_gemm_grouped']}), K3 {w4['residual_boundary']}, "
+          f"all held bit-equal; optimized ({n_leaves} leaves, tiers {tiers}) equal to quantize "
+          f"--importance static_map's; {branch}; static bs{RESNET_BATCH} p50 {s['p50_ms']:.4f} ms, "
+          f"{s['images_per_s_p50']:.1f} img/s (experiment's bench) beside [resnet50 bench] {rb}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3516,6 +3760,7 @@ def main() -> int:
     serve_dp = serve_dp_phase(torch, dev, models, card)
     scaling_phase(torch, dev, models, card)
     cli_experiment_phase(torch, card)
+    imagenet = cli_imagenet_phase(torch, dev, card, models["resnet50"].get("bench_stats"))
 
     def entry(kname, path, source, replaces, launches, err, sums, library):
         return {
@@ -3627,6 +3872,11 @@ def main() -> int:
                  ("residual_boundary", "resnet50"): ("resnet50", "residual_boundary"),
                  ("depthwise_conv", "mobilenetv2"): ("mobilenetv2", "depthwise_conv"),
                  ("int8_gemm_grouped", "convnet_w4a8"): ("convnet_w4a8", "int8_gemm_grouped")}
+    # [cli imagenet]'s launches by model and artifact (the static, dynamic
+    # and W4A8 ResNet-50 at bs128), beside the entries whose kernels they
+    # drive.
+    imagenet_paths = {("int8_gemm", "resnet50"), ("residual_boundary", "resnet50"),
+                      ("fused_dynamic_gemm", "convnet"), ("int8_gemm_grouped", "convnet_w4a8")}
     # The data-parallel paths' K1 launches on the static convnet: rank 0's
     # sharded eval and its calibrated (min-max) forward in [parallel], and
     # one replay of the two-shard engine in [serve dp] (a device trace).
@@ -3645,6 +3895,9 @@ def main() -> int:
             e["accuracy_refined_launches"] = accuracy["refined"][e["name"]]
         if (e["name"], e["path"]) in (("int8_gemm", "resnet50"), ("residual_boundary", "resnet50")):
             e["s4_refined_launches"] = s4["resnet50_launches"][e["name"]]
+        if (e["name"], e["path"]) in imagenet_paths:
+            e["cli_imagenet_launches"] = {f"resnet50/{a}": c[e["name"]] for a, c in imagenet.items()
+                                          if c[e["name"]]}
     print(f"kernels: int8_gemm exact (int32) and bit-equal (every store, the grouped-K and the "
           f"packed-B mode) on "
           f"its paths; fused_dynamic_gemm, residual_boundary and depthwise_conv bit-equal; no "

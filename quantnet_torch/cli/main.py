@@ -43,8 +43,15 @@ weak-scaling sweep over the local cards (results/scaling.json);
 report (quantnet/cli/main.py:685-704). `bench --s4-runtime` benches the
 sub-byte tiers with their 4-bit weights nibble-packed in device memory
 (quantize/common.py::s4_runtime_tree; the same logits, half the weight
-bytes). Not ported yet, and refused by name: ImageNet data (ROADMAP Queue 1
-item 4).
+bytes).
+
+Data: `--dataset cifar10` (the default), `imagenet` (the reference's second
+track: ResNet-50 at 224x224 with 1000 classes unless --model, --image-size
+and --num-classes say otherwise; `<data-dir>/imagenet/val` or
+`./imagenet/val` decoded where it is on disk, else the synthetic split) or
+`synthetic`.
+
+    python -m quantnet_torch experiment --dataset imagenet --importance static_map
 """
 from __future__ import annotations
 
@@ -64,7 +71,6 @@ SUB_BYTE = ("weight_only_int4", "w4a8")
 # Every artifact evaluate, bench and serve load, in the JAX CLI's order
 # (quantnet/cli/main.py:466-468).
 RUNNABLE = ("fp32",) + SCHEMES + ("qat", "qat_int4", "qat_w4a8")
-NOT_PORTED = "Not ported yet (ROADMAP): --dataset imagenet (Queue 1 item 4)."
 
 
 def _torch_pad(meta) -> bool:
@@ -148,8 +154,13 @@ def _load_data(args):
             args.num_classes, args.image_size, args.synthetic_train_size, args.synthetic_test_size,
         )
         return train, test, None
-    raise SystemExit(f"--dataset {args.dataset}: the ImageNet loader is not ported yet "
-                     "(ROADMAP Queue 1 item 4)")
+    if args.dataset == "imagenet":
+        train, test = datasets.load_imagenet(
+            args.data_dir, image_size=args.image_size, synthetic_train_size=args.synthetic_train_size,
+            synthetic_test_size=args.synthetic_test_size, num_classes=args.num_classes,
+        )
+        return train, test, None
+    raise SystemExit(f"unknown dataset {args.dataset!r}")
 
 
 def _artifact_path(save_dir: str, name: str) -> str:
@@ -615,8 +626,7 @@ def cmd_experiment(args):
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(prog="quantnet_torch", description=__doc__.splitlines()[0],
-                                epilog=NOT_PORTED)
+    p = argparse.ArgumentParser(prog="quantnet_torch", description=__doc__.splitlines()[0])
     sub = p.add_subparsers(dest="cmd", required=True)
 
     def common(sp):
@@ -624,13 +634,16 @@ def build_parser() -> argparse.ArgumentParser:
                         help="JSON file of {flag_dest: value} defaults (flags override it)")
         sp.add_argument("--model", default=None,
                         help="simple_convnet | resnet18/34/50/101/152 | mobilenetv2[_<width>] "
-                             "(default simple_convnet)")
-        sp.add_argument("--dataset", default="cifar10", choices=["cifar10", "imagenet", "synthetic"],
-                        help="imagenet is not ported yet (ROADMAP Queue 1 item 4)")
-        sp.add_argument("--image-size", type=int, default=None, help="default 32")
-        sp.add_argument("--num-classes", type=int, default=None, help="default 10")
+                             "(default: simple_convnet; resnet50 for imagenet)")
+        sp.add_argument("--dataset", default="cifar10", choices=["cifar10", "imagenet", "synthetic"])
+        sp.add_argument("--image-size", type=int, default=None,
+                        help="default: 32 (cifar10/synthetic), 224 (imagenet)")
+        sp.add_argument("--num-classes", type=int, default=None,
+                        help="default: 10 (cifar10/synthetic), 1000 (imagenet)")
         sp.add_argument("--conv1-scale", type=float, default=1.0,
                         help="resnet stem input scale (the reference's custom_scale)")
+        sp.add_argument("--importance", default=None, choices=[None, "sensitivity", "static_map"],
+                        help="optimized: the layer-importance source (default sensitivity)")
         sp.add_argument("--data-dir", default="./data")
         sp.add_argument("--save-dir", default="./saved_models")
         sp.add_argument("--results-dir", default="./results")
@@ -671,8 +684,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help=".pth checkpoint (reference full-dict or raw state_dict)")
     sp.set_defaults(fn=cmd_import_torch)
 
-    sp = sub.add_parser("quantize", help="the fp32 artifact -> one artifact per scheme",
-                        epilog=NOT_PORTED)
+    sp = sub.add_parser("quantize", help="the fp32 artifact -> one artifact per scheme")
     common(sp)
     sp.add_argument("--scheme", default="all", choices=["all", *SCHEMES])
     sp.add_argument("--observer", default="minmax",
@@ -687,8 +699,6 @@ def build_parser() -> argparse.ArgumentParser:
                     help="static and w4a8: keep the stem in fp32, handing int8 on")
     sp.add_argument("--pre-add-quant", action="store_true",
                     help="static: quantize residual operands before the add in downsample blocks")
-    sp.add_argument("--importance", default=None, choices=[None, "sensitivity", "static_map"],
-                    help="optimized: the layer-importance source (default sensitivity)")
     sp.add_argument("--optimized-low-tier", default="weight_only", choices=["weight_only", "int4"],
                     help="optimized: the precision of the least sensitive layers")
     sp.add_argument("--adaround-steps", type=int, default=0,
@@ -777,8 +787,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--iters", type=int, default=20)
     sp.set_defaults(fn=cmd_scaling)
 
-    sp = sub.add_parser("experiment", help="train -> quantize all -> qat -> evaluate -> bench -> report",
-                        epilog=NOT_PORTED)
+    sp = sub.add_parser("experiment", help="train -> quantize all -> qat -> evaluate -> bench -> report")
     common(sp)
     sp.add_argument("--epochs", type=int, default=20)
     sp.add_argument("--lr", type=float, default=0.1)
@@ -812,12 +821,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _resolve_defaults(args):
+    """The dataset's defaults, the reference's two tracks: SimpleConvNet on
+    CIFAR-10 at 32x32, ResNet-50 on ImageNet at 224x224 with 1000 classes.
+    Flags given win."""
+    imagenet = args.dataset == "imagenet"
     if args.model is None:
-        args.model = "simple_convnet"
+        args.model = "resnet50" if imagenet else "simple_convnet"
     if args.image_size is None:
-        args.image_size = 32
+        args.image_size = 224 if imagenet else 32
     if args.num_classes is None:
-        args.num_classes = 10
+        args.num_classes = 1000 if imagenet else 10
 
 
 def main(argv: Optional[list] = None):

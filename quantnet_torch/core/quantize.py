@@ -158,6 +158,20 @@ def dequantize(
     return v * torch.as_tensor(scale, dtype=dtype, device=v.device)
 
 
+def fake_quantize_symmetric(x: torch.Tensor, axis: Optional[int] = None) -> torch.Tensor:
+    """int8 emulated in f32: symmetric quantize then dequantize, per tensor
+    or per channel along `axis` (quantnet/core/quantize.py:149-159). The
+    oracle an int8 kernel's result is held against: its product equals an f32
+    product of fake-quantized operands up to the order of the sum."""
+    return quantize_symmetric(x, axis).dequantize()
+
+
+def fake_quantize_affine(x: torch.Tensor, scale, zero_point) -> torch.Tensor:
+    """Affine quantize then dequantize with the given (scale, zero_point),
+    in f32 (quantnet/core/quantize.py:162-164)."""
+    return dequantize(quantize_affine(x, scale, zero_point), scale, zero_point)
+
+
 def maybe_requantize(y: torch.Tensor, out_quant) -> torch.Tensor:
     """The int8 tensor-handoff epilogue: requantize `y` into the consumer's
     frozen domain when `out_quant` (an ActQuant) is given, else pass it on."""
@@ -213,7 +227,7 @@ def fake_quant_act_ste(x: torch.Tensor, scale: float, zero_point: int) -> torch.
     inside the int8 range, 0 outside, 0.5 on its ends)."""
     s, zp, lo, hi = _act_constants(float(scale), int(zero_point), x.device)
     with torch.no_grad():
-        fq = dequantize(quantize_affine(x, s, zp), s, zp)
+        fq = fake_quantize_affine(x, s, zp)
     xc = clip(x, lo, hi)
     return xc + (fq - xc.detach())
 

@@ -1,12 +1,13 @@
-"""Data: CIFAR-10 and its deterministic synthetic fallback (the port's own
-copy of quantnet/data/datasets.py:66-337).
+"""Data: CIFAR-10, ImageNet-val and their deterministic synthetic fallback
+(the port's own copy of quantnet/data/datasets.py:66-463).
 
-The arrays are numpy, NHWC f32, and bit for bit the JAX package's from the
-same seed. `Dataset.batches` gives the JAX package's batches in its order,
-shuffled epochs included (data/loader.py). Real CIFAR-10 is read from the python-pickle batches
-(`cifar-10-batches-py`) where they are on disk; otherwise `load_cifar10`
-returns the synthetic class-conditional task, so nothing is downloaded. The
-ImageNet loader is not ported yet (ROADMAP Queue 1 item 4).
+The arrays are numpy, NHWC, and bit for bit the JAX package's from the same
+seed or the same files. `Dataset.batches` gives the JAX package's batches in
+its order, shuffled epochs included (data/loader.py). Real CIFAR-10 is read
+from the python-pickle batches (`cifar-10-batches-py`) and real ImageNet
+from an ImageFolder `imagenet/val` (decoded with PIL, kept as uint8) where
+they are on disk; otherwise the loaders return the synthetic
+class-conditional task, so nothing is downloaded.
 """
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ CIFAR10_CLASSES = (
 )
 CIFAR10_MEAN = np.array([0.4914, 0.4822, 0.4465], np.float32)
 CIFAR10_STD = np.array([0.2470, 0.2435, 0.2616], np.float32)
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 @dataclass
@@ -199,3 +202,95 @@ def load_cifar10(
     if real is not None:
         return _load_cifar10_real(real)
     return make_synthetic(10, 32, synthetic_train_size, synthetic_test_size, name="cifar10-synthetic")
+
+
+def _find_imagenet_dir(data_dir: str) -> Optional[str]:
+    for cand in (os.path.join(data_dir, "imagenet"), "./imagenet"):
+        if os.path.isdir(os.path.join(cand, "val")):
+            return cand
+    return None
+
+
+def _load_imagenet_real(
+    val_dir: str,
+    image_size: int,
+    max_images: Optional[int] = None,
+    num_workers: Optional[int] = None,
+) -> Dataset:
+    """An ImageFolder val split (val/<wnid>/*.JPEG) decoded with PIL as the
+    reference's val transform does, minus the normalize: the shorter side
+    resized to image_size * 256 / 224 (bilinear), then the centre crop. The
+    files are listed first (sorted classes, sorted files, up to max_images),
+    the uint8 array is allocated once, and a thread pool of num_workers
+    (default QUANTNET_DECODE_WORKERS, else 4) decodes each image into its own
+    row. The split stays uint8; `Dataset.take` normalizes a batch with
+    IMAGENET_MEAN / IMAGENET_STD."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    classes = sorted(d for d in os.listdir(val_dir) if os.path.isdir(os.path.join(val_dir, d)))
+    files = []
+    for ci, c in enumerate(classes):
+        cdir = os.path.join(val_dir, c)
+        for fname in sorted(os.listdir(cdir)):
+            files.append((os.path.join(cdir, fname), ci))
+            if max_images is not None and len(files) >= max_images:
+                break
+        if max_images is not None and len(files) >= max_images:
+            break
+    resize = int(image_size * 256 / 224)
+    x = np.empty((len(files), image_size, image_size, 3), np.uint8)
+    labels = np.empty((len(files),), np.int32)
+
+    def decode(i: int) -> None:
+        path, ci = files[i]
+        img = Image.open(path).convert("RGB")
+        w, h = img.size
+        s = resize / min(w, h)
+        img = img.resize((round(w * s), round(h * s)), Image.BILINEAR)
+        w, h = img.size
+        left, top = (w - image_size) // 2, (h - image_size) // 2
+        x[i] = np.asarray(img.crop((left, top, left + image_size, top + image_size)), np.uint8)
+        labels[i] = ci
+
+    if num_workers is None:
+        num_workers = int(os.environ.get("QUANTNET_DECODE_WORKERS", "4"))
+    with ThreadPoolExecutor(max_workers=max(num_workers, 1)) as pool:
+        list(pool.map(decode, range(len(files))))  # a worker's exception propagates
+    return Dataset(None, labels, len(classes), "imagenet-val", raw_u8=x, mean=IMAGENET_MEAN,
+                   std=IMAGENET_STD)
+
+
+def load_imagenet(
+    data_dir: str = "./data",
+    *,
+    image_size: int = 224,
+    synthetic_train_size: int = 512,
+    synthetic_test_size: int = 512,
+    num_classes: int = 1000,
+    max_images: Optional[int] = None,
+) -> Tuple[Dataset, Dataset]:
+    """(calibration split, val split). With `<data_dir>/imagenet/val` or
+    `./imagenet/val` on disk both are the decoded val split, the same
+    object, as the reference draws its calibration batches from the head of
+    val; otherwise the synthetic task at the same shapes, "imagenet-synthetic"."""
+    real = _find_imagenet_dir(data_dir)
+    if real is not None:
+        val = _load_imagenet_real(os.path.join(real, "val"), image_size, max_images=max_images)
+        return val, val
+    return make_synthetic(num_classes, image_size, synthetic_train_size, synthetic_test_size,
+                          name="imagenet-synthetic")
+
+
+def load_imagenet_val(
+    data_dir: str = "./data",
+    *,
+    image_size: int = 224,
+    synthetic_size: int = 512,
+    num_classes: int = 1000,
+) -> Dataset:
+    """The ImageNet val split alone (see load_imagenet)."""
+    _, test = load_imagenet(data_dir, image_size=image_size, synthetic_test_size=synthetic_size,
+                            num_classes=num_classes)
+    return test

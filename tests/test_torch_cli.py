@@ -126,7 +126,7 @@ def test_subset_merges_into_accuracy_json(pipeline):
     assert after["fp32"] == before["fp32"] and after["static"]["n"] == 64
 
 
-def test_unknown_model_and_missing_subset_fail(pipeline):
+def test_unknown_model_and_missing_subset_fail(pipeline, tmp_path):
     _, d, _ = pipeline
     with pytest.raises(SystemExit, match="unknown model 'vgg16'"):
         main(["evaluate", "--model", "vgg16", *d])
@@ -134,13 +134,17 @@ def test_unknown_model_and_missing_subset_fail(pipeline):
         main(["evaluate", "--model", "resnet77", *d])
     with pytest.raises(SystemExit, match="no artifacts for"):
         main(["evaluate", "--models", "bf16", *d])
-    with pytest.raises(SystemExit, match="Queue 1 item 4"):
-        main(["evaluate", "--dataset", "imagenet", *d])
+    # The ImageNet track runs: its synthetic split at the convnet's shapes.
+    out = main(["evaluate", "--dataset", "imagenet", "--model", "simple_convnet", "--image-size", "32",
+                "--num-classes", "10", "--models", "static", *d, "--synthetic-test-size", "32",
+                "--results-dir", str(tmp_path)])
+    assert set(out) == {"static"} and out["static"]["n"] == 32
 
 
 def test_unported_schemes_and_flags_refused(pipeline, tmp_path, capsys):
-    """What only the JAX package does yet is refused by name: ImageNet data
-    and the s4 runtime. train and qat are ported (tests/test_torch_cli_train.py);
+    """Nothing is refused as unported any more: ImageNet data runs (here
+    bench over it; tests/test_torch_imagenet.py), and so does the s4 runtime.
+    train and qat are ported (tests/test_torch_cli_train.py);
     report, scaling, experiment and serve --data-parallel too
     (tests/test_torch_report.py, tests/test_torch_serve_dp.py): a mesh
     larger than the local devices raises, as the JAX package's does.
@@ -168,8 +172,11 @@ def test_unported_schemes_and_flags_refused(pipeline, tmp_path, capsys):
     capsys.readouterr()
     with pytest.raises(ValueError, match=r"mesh 2x1 needs more than 1 devices"):
         main(["serve", "--data-parallel", "2", *d])
-    with pytest.raises(SystemExit, match="Queue 1 item 4"):
-        main(["evaluate", "--dataset", "imagenet", *d])
+    imagenet = main(["bench", "--dataset", "imagenet", "--model", "simple_convnet", "--image-size", "32",
+                     "--batch-sizes", "1", "--iters", "1", "--warmup", "0", *d,
+                     "--synthetic-test-size", "8", "--results-dir", str(tmp_path)])
+    assert set(imagenet) == {"fp32", "static", "dynamic"}
+    capsys.readouterr()
     # An artifact that is not on disk is missing, not unported.
     with pytest.raises(SystemExit, match=r"no artifacts for \['qat'\]"):
         main(["evaluate", "--models", "qat", *d])
@@ -241,10 +248,14 @@ def test_tracked_artifact_subset_scores_like_jax(with_tracked, monkeypatch):
 
 
 def test_help_names_what_is_not_ported(capsys):
+    """Nothing: the help names no unported part, and gives the ImageNet
+    track's defaults."""
     with pytest.raises(SystemExit):
         main(["quantize", "--help"])
     text = " ".join(capsys.readouterr().out.split())
-    assert "--dataset imagenet (Queue 1 item 4)" in text and "Queue 1 item 1" not in text
+    assert "Queue 1" not in text and "not ported" not in text
+    assert "{cifar10,imagenet,synthetic}" in text and "resnet50 for imagenet" in text
+    assert "224 (imagenet)" in text and "1000 (imagenet)" in text
     assert "w4a8" in text and "optimized" in text  # schemes --scheme takes
     for flag in ("--equalize", "--adaround-steps", "--bias-correct", "--int4-guard",
                  "--importance", "--optimized-low-tier"):

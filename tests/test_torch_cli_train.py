@@ -19,7 +19,7 @@ import torch
 from quantnet.core import config as jcfg
 from quantnet.models import convnet as jconvnet
 from quantnet.train import checkpoint as jckpt
-from quantnet_torch.cli.main import build_parser, main
+from quantnet_torch.cli.main import _resolve_defaults, build_parser, main
 from quantnet_torch.data.datasets import load_cifar10
 from quantnet_torch.models import convnet as tconvnet
 from quantnet_torch.train import checkpoint as tckpt
@@ -122,7 +122,16 @@ def test_refusals(trained, tmp_path):
         main(["qat", "--weight-bits", "4", "--init-from", "w4a8", *d])
     with pytest.raises(SystemExit, match="no fp32 artifact"):
         main(["qat", *_dirs(tmp_path), "--device", "cpu"])
-    with pytest.raises(SystemExit, match="Queue 1 item 4"):
-        main(["train", "--dataset", "imagenet", *d])
-    with pytest.raises(SystemExit, match="Queue 1 item 4"):
-        main(["experiment", "--dataset", "imagenet", *d])
+    # The ImageNet track is no longer refused: train runs on its synthetic
+    # split (ResNet-18 at 32x32), and experiment takes the track's defaults.
+    tiny = _dirs(tmp_path / "imagenet") + [
+        "--dataset", "imagenet", "--model", "resnet18", "--image-size", "32", "--num-classes", "10",
+        "--synthetic-train-size", "32", "--synthetic-test-size", "16", "--batch-size", "16",
+        "--device", "cpu"]
+    out = main(["train", "--epochs", "1", *tiny])
+    assert len(out["history"]) == 1
+    meta = json.loads((tmp_path / "imagenet" / "saved" / "fp32.json").read_text())["metadata"]
+    assert meta["model"] == "resnet18"
+    args = build_parser().parse_args(["experiment", "--dataset", "imagenet"])
+    _resolve_defaults(args)
+    assert (args.model, args.image_size, args.num_classes) == ("resnet50", 224, 1000)
