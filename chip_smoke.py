@@ -20,7 +20,13 @@ one line with its wall time:
   3. int8_gemm  K1's int32 store exact at the reference test shapes and the
                 GEMM shapes of the convnets and ResNet-50; the int8 store's
                 division on adversarial inputs; the grouped-K mode bit-equal
-                at W4A8's four dense shapes and fc1's four groups
+                at W4A8's four dense shapes and fc1's four groups, each at M
+                = 1, 8, 64, 128, 1024 and its own, int8-wide and packed,
+                with the plan's cluster split and without, and on
+                order-sensitive group scales, where a planted pairwise fold
+                must differ; the packed-B mode bit-equal at the convnet's
+                convs at bs1024 and bs1 under each of its plans (widened
+                slots, four or two of them, cluster split)
   4. depthwise  K4 bit-equal at MobileNetV2's 17 depthwise shapes at bs256:
                 int32, static int8, dynamic bf16, rounding ties, past the
                 fast division's range; and at its tiling edge cases (torch
@@ -32,7 +38,11 @@ one line with its wall time:
                 bs32, MobileNetV2's fc at bs256; f32 and bf16 x; edge cases)
   7. boundary   K3 bit-equal, both variants, at its test and ResNet-50 shapes
   8. times      each kernel at its main-path shapes (CUDA events around
-                back-to-back calls), summed over one forward, beside its bound,
+                back-to-back calls; K1's grouped and packed launches, their
+                int8-wide yardsticks and K2 as device time, 20 launches in a
+                CUDA graph, the back-to-back figure beside; the W4A8 convnet's
+                bs1 rows at a bs1 forward's own calls; each such launch's
+                plan), summed over one forward, beside its bound,
                 its plain version, the PyTorch call that computes the same
                 (torch._int_mm for K1's int32 store, F.conv2d for K4's: f32
                 NCHW and channels_last, and bf16 channels_last, not exact)
@@ -107,7 +117,8 @@ one line with its wall time:
  23. s4         (after [accuracy]) the s4 runtime: the W4A8 convnet's 4-bit
                 weights nibble-packed, K1 in its packed-B mode; logits
                 bit-equal to the int8-wide tree's at bs1024 and bs1, the
-                payloads' device bytes, p50 beside the int8-wide tree's;
+                payloads' device bytes, p50 and graph-replay device time
+                beside the int8-wide tree's;
                 weight_only_int4 at bs32; the refined W4A8 ResNet-50 with
                 every packed K1 and K3 launch held against its plain version
                 (the s4 convnet's launches are held in [k1 stores], and
@@ -405,7 +416,7 @@ def build_phase():
     check(set(libs) == set(_build.LIBRARIES), f"built {sorted(libs)}")
     for name, log in _build.build_log.items():
         for line in log.splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
+            if any(w in line for w in ("Compiling entry", "registers", "spill", "wgmma", "warning")):
                 print(f"  ptxas {name}: {line.strip()}")
     secs = ", ".join(f"{n} {s:.1f} s" for n, s in _build.build_seconds.items())
     phase("build", t0, f"nvcc + ctypes: {secs or 'already built'}")
@@ -481,13 +492,18 @@ def int8_gemm_phase(torch, dev):
         check(bad == 0, f"int8 requantize, scale {scale}: {bad} of {y.numel()} differ from quantize_affine")
         n_div += y.numel()
     err["convnet_static"] = max(err["convnet_static"], err["convnet"])  # conv2-conv6 shared
-    err["grouped"], n_grouped = grouped_check(torch, dev)
+    err["grouped"], n_grouped, grouped_plans, caught = grouped_check(torch, dev)
+    n_packed, packed_plans = packed_check(torch, dev)
     phase("int8_gemm", t0, f"int32 store exact against int8_gemm_plain at {len(shapes)} shapes "
           f"({len(gemms)} of them ResNet-50's at bs{RESNET_BATCH}); the int8 store's division "
           f"bit-equal to quantize_affine on {n_div} inputs in {len(REQUANTIZE_DOMAINS)} domains; "
           f"the grouped-K mode (W4A8) bit-equal to its plain version in {n_grouped} cases: "
           f"{', '.join(n for n, *_ in GROUPED_SHAPES)} at g{W4A8_GROUP} and fc1 at g"
-          f"{', '.join(map(str, FC1_GROUPS))}, f32 and int8 stores")
+          f"{', '.join(map(str, FC1_GROUPS))}, each at its rows and M = "
+          f"{', '.join(map(str, GROUPED_ROWS))}, int8-wide and packed, f32 and int8 stores, plans: "
+          f"{'; '.join(grouped_plans)}; order-sensitive scales bit-equal, a planted pairwise fold "
+          f"caught at {', '.join(caught)}; the packed-B mode bit-equal in {n_packed} cases at the "
+          f"convnet's convs at bs{BATCH} and bs1, plans: {'; '.join(packed_plans)}")
     return err
 
 
@@ -510,31 +526,148 @@ def grouped_epilogue(torch, dev, g, m, k, n, group, store):
     return Epilogue(cs=cs, bias=bias, group=group, gs=gs, gzpw=gzpw)
 
 
+# The rows the grouped-K mode is held at, beside each shape's own: a bs1
+# forward's, small batches, one tile, the bench's batch.
+GROUPED_ROWS = (1, 8, 64, 128, 1024)
+
+
+def _same_bits(torch, got, ref) -> int:
+    """How many elements differ, compared as integers (-0 against +0 counts)."""
+    bits = {torch.float32: torch.int32, torch.int8: torch.int8, torch.bfloat16: torch.int16}
+    return int((got.contiguous().view(bits[got.dtype]) != ref.contiguous().view(bits[ref.dtype])).sum())
+
+
+def _plan_kind(plan) -> str:
+    return f"BN {plan.bn} {plan.stages} stages {plan.slots} slots split {plan.split}"
+
+
+def _pairwise_fold(torch, a, b, epi):
+    """A planted reorder of the grouped mode's f32 fold: the same t_g summed
+    pairwise, ((t0 + t1) + (t2 + t3)) + ..., then the epilogue."""
+    from quantnet_torch.ops.int8_matmul import finish_epilogue, int8_gemm_plain
+
+    ts = [(int8_gemm_plain(a[:, q:q + epi.group], b[:, q:q + epi.group]) - epi.gzpw[q // epi.group]).float()
+          * epi.gs[q // epi.group] for q in range(0, a.shape[1], epi.group)]
+    while len(ts) > 1:
+        ts = [ts[i] + ts[i + 1] if i + 1 < len(ts) else ts[i] for i in range(0, len(ts), 2)]
+    return finish_epilogue((torch.zeros_like(ts[0]) + ts[0]) * epi.cs, epi)
+
+
 def grouped_check(torch, dev):
     """K1's grouped-K mode against its plain version, bit for bit (compared
-    as integers), on int8 activations and 4-bit weights. Returns (max |diff|,
-    cases)."""
-    from quantnet_torch.ops.int8_matmul import int8_gemm_epilogue, int8_gemm_epilogue_plain
+    as integers), on int8 activations and 4-bit weights, int8-wide and
+    nibble-packed: every GROUPED_SHAPES entry and fc1 at every FC1_GROUPS
+    group, each at its own rows and at GROUPED_ROWS, f32 and int8 stores,
+    with the plan's split and with none; then on inputs whose group scales
+    make the f32 order matter (grouped_order_epilogue), where a planted
+    pairwise fold of the same terms must differ from the plain version.
+    Returns (max |diff|, cases, the plans met)."""
+    from quantnet_torch.core.types import pack_nibbles
+    from quantnet_torch.ops.int8_matmul import (
+        _STORES,
+        grouped_order_epilogue,
+        int8_gemm_epilogue,
+        int8_gemm_epilogue_plain,
+        k1_plan,
+        launch_plan,
+    )
 
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
-    cases = [(name, m, k, n, W4A8_GROUP) for name, m, k, n in GROUPED_SHAPES] + [
-        ("convnet_fc1", 1024, 4096, 512, group) for group in FC1_GROUPS if group != W4A8_GROUP]
-    bits = {torch.float32: torch.int32, torch.int8: torch.int8}
-    err, n_cases = 0.0, 0
-    for name, m, k, n, group in cases:
+    shapes = [(name, k, n, W4A8_GROUP) for name, _, k, n in GROUPED_SHAPES] + [
+        ("convnet_fc1", 4096, 512, group) for group in FC1_GROUPS if group != W4A8_GROUP]
+    rows = {name: m for name, m, _, _ in GROUPED_SHAPES}
+    err, n_cases, plans = 0.0, 0, set()
+    for name, k, n, group in shapes:
+        b = torch.randint(-7, 8, (n, k), generator=g, device=dev, dtype=torch.int8)
+        packed = pack_nibbles(b)
+        for m in sorted({rows[name], *GROUPED_ROWS}):
+            a = torch.randint(-128, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+            for store in ("f32", "int8"):
+                epi = grouped_epilogue(torch, dev, g, m, k, n, group, store)
+                ref = int8_gemm_epilogue_plain(a, b, epi)
+                for bb in (b, packed):
+                    plan = launch_plan(a, bb, epi)
+                    variants = [None] + ([k1_plan(m, n, k, _STORES[epi.out], group, bb is packed, split=1)]
+                                         if plan.split > 1 else [])
+                    for forced in variants:
+                        got = int8_gemm_epilogue(a, bb, epi, plan=forced)
+                        torch.cuda.synchronize()
+                        bad = _same_bits(torch, got, ref)
+                        err = max(err, (got.float() - ref.float()).abs().max().item())
+                        check(bad == 0, f"int8_gemm grouped {name} {m}x{k}x{n} g{group} {store} "
+                              f"{'packed' if bb is packed else 'int8-wide'} ({forced or plan}): {bad} of "
+                              f"{ref.numel()} differ from the plain version")
+                        plans.add(_plan_kind(forced or plan))
+                        n_cases += 1
+    # The fold's order: inputs where it shows, the kernel still bit-equal,
+    # a pairwise fold of the same t_g not.
+    caught = []
+    for m, k, n, group in ((1, 4096, 512, 128), (64, 4096, 512, 32), (1024, 4096, 512, 128),
+                           (128, 2048, 1000, 128)):
         a = torch.randint(-128, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
         b = torch.randint(-7, 8, (n, k), generator=g, device=dev, dtype=torch.int8)
-        for store in ("f32", "int8"):
-            epi = grouped_epilogue(torch, dev, g, m, k, n, group, store)
-            got = int8_gemm_epilogue(a, b, epi)
-            torch.cuda.synchronize()
-            ref = int8_gemm_epilogue_plain(a, b, epi)
-            bad = int((got.contiguous().view(bits[epi.out]) != ref.view(bits[epi.out])).sum())
-            err = max(err, (got.float() - ref.float()).abs().max().item())
-            check(bad == 0, f"int8_gemm grouped {name} {m}x{k}x{n} g{group} {store}: {bad} of "
-                  f"{ref.numel()} differ from the plain version")
+        epi = grouped_order_epilogue(m, k, n, group, torch.float32, dev, seed=m + group)
+        ref = int8_gemm_epilogue_plain(a, b, epi)
+        for bb in (b, pack_nibbles(b)):
+            bad = _same_bits(torch, int8_gemm_epilogue(a, bb, epi), ref)
+            check(bad == 0, f"int8_gemm grouped {m}x{k}x{n} g{group}, order-sensitive scales "
+                  f"({launch_plan(a, bb, epi)}): {bad} of {ref.numel()} differ from the plain version")
             n_cases += 1
-    return err, n_cases
+        planted = _same_bits(torch, _pairwise_fold(torch, a, b, epi), ref)
+        check(planted > 0, f"the planted pairwise fold at {m}x{k}x{n} g{group} equals the plain "
+              "version: the grouped check could not fail")
+        caught.append(f"{m}x{k}x{n} g{group} {planted} of {ref.numel()}")
+    return err, n_cases, sorted(plans), caught
+
+
+def packed_check(torch, dev):
+    """K1's packed-B mode against its plain version, bit for bit, at the
+    W4A8 convnet's convs at bs1024 and at a bs1 forward's shapes (int8
+    store with zero point, bias and relu; f32 store), under every plan the
+    mode has there: the default (four widened slots, or a cluster split),
+    two slots, and no split where the default splits. Returns (cases,
+    plans met)."""
+    from quantnet_torch.core.types import ActQuant, pack_nibbles
+    from quantnet_torch.ops.int8_matmul import (
+        _STORES,
+        Epilogue,
+        int8_gemm_epilogue,
+        int8_gemm_epilogue_plain,
+        k1_plan,
+        launch_plan,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    n_cases, plans = 0, set()
+    for _, m1024, k, n in CONV_SHAPES[1:]:
+        w = torch.randint(-8, 8, (n, k), generator=g, device=dev, dtype=torch.int8)
+        b = pack_nibbles(w)
+        for m in (m1024, m1024 // BATCH):
+            a = torch.randint(-128, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+            for store in ("int8", "f32"):
+                cs = torch.rand((n,), generator=g, device=dev) * 1e-3
+                bias = torch.randn((n,), generator=g, device=dev)
+                zpw = torch.randint(-9000, 9000, (n,), generator=g, device=dev, dtype=torch.int32)
+                epi = (Epilogue(cs=cs, bias=bias, zpw=zpw, act="relu", out=torch.int8,
+                                out_quant=ActQuant(torch.tensor(0.05, device=dev),
+                                                   torch.tensor(-128, dtype=torch.int32, device=dev)))
+                       if store == "int8" else Epilogue(cs=cs, bias=bias, zpw=zpw))
+                ref = int8_gemm_epilogue_plain(a, b, epi)
+                code = _STORES[epi.out]
+                plan = launch_plan(a, b, epi)
+                variants = {plan, k1_plan(m, n, k, code, packed=True, split=plan.split, slots=2)}
+                if plan.split > 1:
+                    variants.add(k1_plan(m, n, k, code, packed=True, split=1))
+                for plan in sorted(variants, key=str):
+                    got = int8_gemm_epilogue(a, b, epi, plan=plan)
+                    torch.cuda.synchronize()
+                    bad = _same_bits(torch, got, ref)
+                    check(bad == 0, f"int8_gemm packed {m}x{k}x{n} {store} ({plan}): {bad} of "
+                          f"{ref.numel()} differ from the plain version")
+                    plans.add(_plan_kind(plan))
+                    n_cases += 1
+            del a
+    return n_cases, sorted(plans)
 
 
 def mobilenet_dw_shapes(batch: int, image: int):
@@ -753,10 +886,12 @@ def _time_k1_fused(torch, a, b, epi, iters):
 
 
 def _time_k1_grouped(torch, a, b, epi, iters):
-    """(kernel, unfused route, plain) ms of one launch of K1's grouped-K
-    mode: the fused launch; the route it replaces, one int32 launch of K1
-    per group on the group's K-slice (sliced beforehand) and the combine in
-    PyTorch ops; the plain version."""
+    """{ms, back_to_back, unfused, plain} ms of one launch of K1's grouped-K
+    mode: the fused launch as device time (device_ms: at bs1 and at fc2 a
+    call is shorter than the host's cost of issuing it) and as back-to-back
+    calls (time_ms, which times the host below ~30 us a call); the route it
+    replaces, one int32 launch of K1 per group on the group's K-slice
+    (sliced beforehand) and the combine in PyTorch ops; the plain version."""
     from quantnet_torch.ops.int8_matmul import (
         finish_epilogue,
         grouped_accumulate,
@@ -773,24 +908,47 @@ def _time_k1_grouped(torch, a, b, epi, iters):
         y = grouped_accumulate(lambda lo, hi: int8_gemm(*slices[lo]), k, epi)
         return finish_epilogue(y * epi.cs, epi)
 
-    ms = time_ms(lambda: int8_gemm_epilogue(a, b, epi), iters)
-    unfused_ms = time_ms(unfused, iters)
-    plain = time_ms(lambda: int8_gemm_epilogue_plain(a, b, epi), max(iters // 4, 3))
-    return ms, unfused_ms, plain
+    return {"ms": device_ms(lambda: int8_gemm_epilogue(a, b, epi)),
+            "back_to_back": time_ms(lambda: int8_gemm_epilogue(a, b, epi), iters),
+            "unfused": time_ms(unfused, iters),
+            "plain": time_ms(lambda: int8_gemm_epilogue_plain(a, b, epi), max(iters // 4, 3))}
 
 
 def _time_k1_packed(torch, a, b, epi, iters):
-    """(kernel, int8-wide launch, plain) ms of one launch of K1's packed-B
-    mode: the packed launch; the same launch on the widened weight (the
-    yardstick); the plain version."""
+    """{ms, wide, back_to_back, wide_back_to_back, plain} ms of one launch of
+    K1's packed-B mode: the packed launch and the same launch on the widened
+    weight (the yardstick), each as device time (device_ms) and as
+    back-to-back calls (time_ms); the plain version."""
     from quantnet_torch.core.types import unpack_nibbles
     from quantnet_torch.ops.int8_matmul import int8_gemm_epilogue, int8_gemm_epilogue_plain
 
     wide = unpack_nibbles(b)
-    ms = time_ms(lambda: int8_gemm_epilogue(a, b, epi), iters)
-    wide_ms = time_ms(lambda: int8_gemm_epilogue(a, wide, epi), iters)
-    plain = time_ms(lambda: int8_gemm_epilogue_plain(a, b, epi), max(iters // 4, 3))
-    return ms, wide_ms, plain
+    return {"ms": device_ms(lambda: int8_gemm_epilogue(a, b, epi)),
+            "wide": device_ms(lambda: int8_gemm_epilogue(a, wide, epi)),
+            "back_to_back": time_ms(lambda: int8_gemm_epilogue(a, b, epi), iters),
+            "wide_back_to_back": time_ms(lambda: int8_gemm_epilogue(a, wide, epi), iters),
+            "plain": time_ms(lambda: int8_gemm_epilogue_plain(a, b, epi), max(iters // 4, 3))}
+
+
+def _plans(a, b, epi) -> str:
+    """The launch plan of a K1 call (and, for a packed B, of the int8-wide
+    launch on its widened weight)."""
+    from quantnet_torch.core.types import unpack_nibbles
+    from quantnet_torch.ops.int8_matmul import is_packed, launch_plan
+
+    text = f"plan {launch_plan(a, b, epi)}"
+    if is_packed(b):
+        text += f"; int8-wide plan {launch_plan(a, unpack_nibbles(b), epi)}"
+    return text
+
+
+def _k1_calls_at(torch, m, rows):
+    """The K1 calls of one forward of a model on its first `rows` images,
+    each held bit-equal to its plain version (held_launches), by (M, K, N,
+    store) -> [count, a, b, epi]."""
+    with held_launches(torch) as rec:
+        m["apply"](m["q"], m["qs"], m["x"][:rows])
+    return rec["calls"]["int8_gemm"]
 
 
 def _k1_fused_bytes(a, b, epi) -> int:
@@ -920,9 +1078,9 @@ def times_phase(torch, dev, k1_calls, dw_calls, models):
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     k1_int32 = {path: _sums() for path in K1_PATHS}
     k1 = {path: _sums() for path in K1_PATHS}
-    k1g = _sums()
     k2 = {batch: _sums() for batch in FC_BATCHES}
     k2_own = {batch: 0.0 for batch in FC_BATCHES}
+    k2_b2b = {batch: 0.0 for batch in FC_BATCHES}
     k3 = _sums()
     gemms, boundaries = resnet_shapes(RESNET_BATCH, RESNET_IMAGE)
     # The int32 store at the K the kernel runs (conv1's 27 padded to 32;
@@ -947,39 +1105,63 @@ def times_phase(torch, dev, k1_calls, dw_calls, models):
     print(f"  host cost of one call: int8_gemm {host['int8_gemm']:.2f} us and torch._int_mm "
           f"{host['torch._int_mm']:.2f} us at 128x64x64, fused_dynamic_gemm "
           f"{host['fused_dynamic_gemm']:.2f} us at 64x512x10")
-    for path in K1_PATHS + ("convnet_w4a8",):
+    for path in K1_PATHS:
         for (m, k, n, store), (count, a, b, epi) in sorted(k1_calls[path].items()):
-            grouped = epi.group is not None
-            if path not in K1_PATHS and not grouped:
-                continue  # the W4A8 convnet's convs: the static sibling's shapes
-            timer = _time_k1_grouped if grouped else _time_k1_fused
-            ms, unfused, plain = timer(torch, a, b, epi, 20)
+            ms, unfused, plain = _time_k1_fused(torch, a, b, epi, 20)
             nbytes, ops = _k1_fused_bytes(a, b, epi), 2 * m * n * k
             print(f"  int8_gemm {path} {store} {m}x{k}x{n} x{count}: kernel {ms:.4f} ms, bound "
                   f"{bound(nbytes, ops)[0]:.4f} ms ({bound(nbytes, ops)[1]}), unfused route "
                   f"{unfused:.4f} ms, plain {plain:.4f} ms")
-            _add(k1g if grouped else k1[path], count, ms, plain, nbytes, ops, unfused)
-    # K1's packed-B mode at the W4A8 convnet's shapes under the s4 runtime,
-    # at bs1024 and at bs1 (the first row of each call); the bound counts the
-    # packed weight's bytes; library_ms holds the int8-wide launch's ms.
-    k1p = {key: _sums() for key in ("normal", "grouped", "normal_bs1", "grouped_bs1")}
-    for (m, k, n, store), (count, a, b, epi) in sorted(k1_calls["convnet_w4a8_s4"].items()):
-        check(b.dtype == torch.uint8, f"[times] the s4 tree's K1 call {m}x{k}x{n} got {b.dtype}")
-        kind = "grouped" if epi.group is not None else "normal"
-        for rows, key in ((m, kind), (1, f"{kind}_bs1")):
-            aa = a[:rows].contiguous()
-            ms, wide_ms, plain = _time_k1_packed(torch, aa, b, epi, 20)
-            nbytes, ops = _k1_fused_bytes(aa, b, epi), 2 * rows * n * k
-            print(f"  int8_gemm packed {store} {rows}x{k}x{n} x{count}: kernel {ms:.4f} ms, bound "
-                  f"{bound(nbytes, ops)[0]:.4f} ms ({bound(nbytes, ops)[1]}, packed weight "
-                  f"{b.numel()} bytes), int8-wide launch {wide_ms:.4f} ms, plain {plain:.4f} ms")
-            _add(k1p[key], count, ms, plain, nbytes, ops, wide_ms)
+            _add(k1[path], count, ms, plain, nbytes, ops, unfused)
+    # The W4A8 convnet's grouped-K launches (fc1 and fc2), at bs1024 and at
+    # a bs1 forward's own shapes (M = 1), as device time; the back-to-back
+    # figure beside it. library_ms holds the unfused route.
+    k1g = {key: dict(_sums(), back_to_back_ms=0.0) for key in ("bs1024", "bs1")}
+    plans = {"grouped": [], "packed_normal": [], "packed_grouped": []}
+    wide_calls = {"bs1024": k1_calls["convnet_w4a8"], "bs1": _k1_calls_at(torch, models["convnet_w4a8"], 1)}
+    for key, calls in wide_calls.items():
+        for (m, k, n, store), (count, a, b, epi) in sorted(calls.items()):
+            if epi.group is None:
+                continue  # the W4A8 convnet's convs: the static sibling's shapes
+            t = _time_k1_grouped(torch, a, b, epi, 20)
+            nbytes, ops = _k1_fused_bytes(a, b, epi), 2 * m * n * k
+            print(f"  int8_gemm convnet_w4a8 {store} {m}x{k}x{n} x{count}: kernel {t['ms']:.4f} ms "
+                  f"device (back-to-back calls {t['back_to_back']:.4f} ms), bound "
+                  f"{bound(nbytes, ops)[0]:.4f} ms ({bound(nbytes, ops)[1]}), unfused route "
+                  f"{t['unfused']:.4f} ms, plain {t['plain']:.4f} ms; {_plans(a, b, epi)}")
+            _add(k1g[key], count, t["ms"], t["plain"], nbytes, ops, t["unfused"])
+            plans["grouped"].append(f"{m}x{k}x{n} {store}: {_plans(a, b, epi)}")
+            k1g[key]["back_to_back_ms"] += count * t["back_to_back"]
+    # K1's packed-B mode at the W4A8 convnet's calls under the s4 runtime, at
+    # bs1024 and at a bs1 forward's own shapes (the convs at M = H x W of one
+    # image, fc1 and fc2 at M = 1), as device time; the bound counts the
+    # packed weight's bytes; library_ms holds the int8-wide launch's device
+    # time, and the back-to-back figures sit beside both.
+    k1p = {key: dict(_sums(), back_to_back_ms=0.0, wide_back_to_back_ms=0.0)
+           for key in ("normal", "grouped", "normal_bs1", "grouped_bs1")}
+    s4_calls = {"": k1_calls["convnet_w4a8_s4"], "_bs1": _k1_calls_at(torch, models["convnet_w4a8_s4"], 1)}
+    for suffix, calls in s4_calls.items():
+        for (m, k, n, store), (count, a, b, epi) in sorted(calls.items()):
+            check(b.dtype == torch.uint8, f"[times] the s4 tree's K1 call {m}x{k}x{n} got {b.dtype}")
+            key = ("grouped" if epi.group is not None else "normal") + suffix
+            t = _time_k1_packed(torch, a, b, epi, 20)
+            nbytes, ops = _k1_fused_bytes(a, b, epi), 2 * m * n * k
+            print(f"  int8_gemm packed {store} {m}x{k}x{n} x{count}: kernel {t['ms']:.4f} ms device "
+                  f"(back-to-back calls {t['back_to_back']:.4f} ms), bound {bound(nbytes, ops)[0]:.4f} ms "
+                  f"({bound(nbytes, ops)[1]}, packed weight {b.numel()} bytes), int8-wide launch "
+                  f"{t['wide']:.4f} ms device (back-to-back {t['wide_back_to_back']:.4f} ms), plain "
+                  f"{t['plain']:.4f} ms; {_plans(a, b, epi)}")
+            _add(k1p[key], count, t["ms"], t["plain"], nbytes, ops, t["wide"])
+            plans["packed_" + key.replace("_bs1", "")].append(f"{m}x{k}x{n} {store}: {_plans(a, b, epi)}")
+            k1p[key]["back_to_back_ms"] += count * t["back_to_back"]
+            k1p[key]["wide_back_to_back_ms"] += count * t["wide_back_to_back"]
     own = k2_operands(torch, models["convnet"])
     k2_shapes = FC_SHAPES + [("mobilenetv2_fc", MNV2_BATCH, 1280, 1000, "bfloat16")]
     k2_mnv2 = _sums()
     for name, m, k, n, dtype in k2_shapes:
         args = fused_inputs(torch, dev, m, k, n, g, dtype) + (name == "fc1",)  # fc1's relu
-        ms = time_ms(lambda: fused_dynamic_gemm(*args))
+        ms = device_ms(lambda: fused_dynamic_gemm(*args))
+        b2b = time_ms(lambda: fused_dynamic_gemm(*args))
         plain = time_ms(lambda: fused_dynamic_gemm_plain(*args))
         nbytes = args[0].element_size() * m * k + k * n + 8 * n + 4 * m * n
         ops = 2 * m * n * k
@@ -988,12 +1170,15 @@ def times_phase(torch, dev, k1_calls, dw_calls, models):
             own_args = own[m][name]
             check(tuple(own_args[0].shape) == (m, k) and own_args[0].dtype == args[0].dtype,
                   f"{name} bs{m} takes {tuple(own_args[0].shape)} {own_args[0].dtype} in the forward")
-            own_ms = time_ms(lambda: fused_dynamic_gemm(*own_args))
+            own_ms = device_ms(lambda: fused_dynamic_gemm(*own_args))
             _add(k2[m], 1, ms, plain, nbytes, ops)
             k2_own[m] += own_ms
+            k2_b2b[m] += b2b
         else:
             _add(k2_mnv2, 1, ms, plain, nbytes, ops)
-        print(f"  fused_dynamic_gemm {name} {m}x{k}x{n} {dtype} x: kernel {ms:.4f} ms"
+            k2_b2b["mobilenetv2_fc"] = b2b
+        print(f"  fused_dynamic_gemm {name} {m}x{k}x{n} {dtype} x: kernel {ms:.4f} ms device "
+              f"(back-to-back calls {b2b:.4f} ms)"
               f"{'' if own_ms is None else f' (on the forward own input {own_ms:.4f} ms)'}, bound "
               f"{bound(nbytes, ops)[0]:.4f} ms ({bound(nbytes, ops)[1]}), plain {plain:.4f} ms")
     for (shape, i8), count in sorted(boundaries.items()):
@@ -1019,12 +1204,19 @@ def times_phase(torch, dev, k1_calls, dw_calls, models):
     per_batch = "; ".join(
         f"fused_dynamic_gemm bs{bt} {k2[bt]['ms']:.4f} ms (own inputs {k2_own[bt]:.4f}, bound "
         f"{k2[bt]['bound_ms']:.4f}, plain {k2[bt]['plain_ms']:.4f})" for bt in FC_BATCHES)
-    phase("times", t0, f"per forward: {per_path}; int8_gemm grouped (W4A8 convnet) {k1g['ms']:.4f} ms "
-          f"(bound {k1g['bound_ms']:.4f}, unfused route {k1g['library_ms']:.4f}, plain "
-          f"{k1g['plain_ms']:.4f}); int8_gemm packed (W4A8 convnet, s4) " + ", ".join(
-              f"{key} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}, int8-wide {v['library_ms']:.4f})"
-              for key, v in k1p.items()) + f"; {per_batch}; fused_dynamic_gemm mobilenetv2 fc "
-          f"{k2_mnv2['ms']:.4f} ms (bound {k2_mnv2['bound_ms']:.4f}); residual_boundary "
+    grouped = ", ".join(
+        f"{key} {v['ms']:.4f} ms device (back-to-back {v['back_to_back_ms']:.4f}, bound "
+        f"{v['bound_ms']:.4f}, unfused route {v['library_ms']:.4f}, plain {v['plain_ms']:.4f})"
+        for key, v in k1g.items())
+    packed = ", ".join(
+        f"{key} {v['ms']:.4f} ms device (back-to-back {v['back_to_back_ms']:.4f}, bound "
+        f"{v['bound_ms']:.4f}, int8-wide {v['library_ms']:.4f} device, back-to-back "
+        f"{v['wide_back_to_back_ms']:.4f})" for key, v in k1p.items())
+    phase("times", t0, f"per forward: {per_path}; int8_gemm grouped (W4A8 convnet) {grouped}; "
+          f"int8_gemm packed (W4A8 convnet, s4) {packed}; {per_batch} (device time; back-to-back "
+          f"{', '.join(f'bs{bt} {k2_b2b[bt]:.4f}' for bt in FC_BATCHES)}); fused_dynamic_gemm "
+          f"mobilenetv2 fc {k2_mnv2['ms']:.4f} ms device (back-to-back {k2_b2b['mobilenetv2_fc']:.4f}, "
+          f"bound {k2_mnv2['bound_ms']:.4f}); residual_boundary "
           f"{k3['ms']:.4f} ms (bound {k3['bound_ms']:.4f}, plain {k3['plain_ms']:.4f}); "
           f"depthwise_conv mobilenetv2 {k4['ms']:.4f} ms of device time (bound {k4['bound_ms']:.4f}, "
           f"{k4['bound_ms'] / k4['ms']:.1%}; back-to-back calls {k4_lib['events']:.4f}; int32 store "
@@ -1036,19 +1228,21 @@ def times_phase(torch, dev, k1_calls, dw_calls, models):
           f"host cost per call int8_gemm {host['int8_gemm']:.2f} us, fused_dynamic_gemm "
           f"{host['fused_dynamic_gemm']:.2f} us, torch._int_mm {host['torch._int_mm']:.2f} us")
     first = FC_BATCHES[0]
-    k2_entry = dict(k2[first], own_ms=k2_own[first], host_us=host["fused_dynamic_gemm"])
+    k2_entry = dict(k2[first], own_ms=k2_own[first], host_us=host["fused_dynamic_gemm"],
+                    back_to_back_ms=k2_b2b[first])
     for bt in FC_BATCHES[1:]:
         k2_entry.update({f"bs{bt}_ms": k2[bt]["ms"], f"bs{bt}_own_ms": k2_own[bt],
                          f"bs{bt}_bound_ms": k2[bt]["bound_ms"],
-                         f"bs{bt}_plain_ms": k2[bt]["plain_ms"]})
+                         f"bs{bt}_plain_ms": k2[bt]["plain_ms"], f"bs{bt}_back_to_back_ms": k2_b2b[bt]})
     k2_entry.update(mobilenetv2_fc_ms=k2_mnv2["ms"], mobilenetv2_fc_bound_ms=k2_mnv2["bound_ms"],
-                    mobilenetv2_fc_plain_ms=k2_mnv2["plain_ms"])
+                    mobilenetv2_fc_plain_ms=k2_mnv2["plain_ms"],
+                    mobilenetv2_fc_back_to_back_ms=k2_b2b["mobilenetv2_fc"])
     k4_entry = dict(k4, int32_ms=k4_int32["ms"], int32_bound_ms=k4_int32["bound_ms"],
                     back_to_back_ms=k4_lib["events"],
                     library_nhwc_f32_ms=k4_lib["nhwc_f32"], library_nhwc_bf16_ms=k4_lib["nhwc_bf16"],
                     dynamic_ms=k4_dyn["ms"], dynamic_bound_ms=k4_dyn["bound_ms"],
                     dynamic_plain_ms=k4_dyn["plain_ms"])
-    return k1_int32, k1, k1g, k2_entry, k3, k4_entry, k1p
+    return k1_int32, k1, k1g, k2_entry, k3, k4_entry, k1p, plans
 
 
 def build_models(torch, dev):
@@ -3199,9 +3393,15 @@ def s4_phase(torch, dev, models, refined, card) -> dict:
         p50 = {k: bench.measure(convnet.apply, m["q"], m["qs"], bs)["p50_ms"]
                for k, m in (("s4", s4), ("int8-wide", wide))}
         out[f"p50_bs{bs}"] = p50
+        # The forward as a served request sees it: one CUDA graph of 10
+        # forwards, replayed (device time, the host's cost left out).
+        replay = {k: device_ms(lambda m=m: convnet.apply(m["q"], m["qs"], x), launches=10, replays=3)
+                  for k, m in (("s4", s4), ("int8-wide", wide))}
+        out[f"graph_ms_bs{bs}"] = replay
         parts.append(f"bs{bs}: logits bit-equal, {packed} packed K1 launches ({counts['int8_gemm_grouped']} "
                      f"grouped), p50 {p50['s4']:.4f} ms against the int8-wide tree's "
-                     f"{p50['int8-wide']:.4f} ms")
+                     f"{p50['int8-wide']:.4f} ms; graph replay {replay['s4']:.4f} ms device against "
+                     f"{replay['int8-wide']:.4f} ms")
     payload = {k: _four_bit_payload_bytes(m["q"]) for k, m in (("int8-wide", wide), ("s4", s4))}
     tree = {k: _device_bytes(torch, m["q"]) for k, m in (("int8-wide", wide), ("s4", s4))}
     out["payload_bytes"], out["tree_bytes"] = payload, tree
@@ -3736,7 +3936,7 @@ def main() -> int:
     k1_calls, dw_calls, store_errs = k1_stores_phase(torch, models)
     fused_err = fused_phase(torch, dev)
     boundary_err = boundary_phase(torch, dev)
-    k1_int32, k1, k1g, k2, k3, k4, k1p = times_phase(torch, dev, k1_calls, dw_calls, models)
+    k1_int32, k1, k1g, k2, k3, k4, k1p, plans = times_phase(torch, dev, k1_calls, dw_calls, models)
     del k1_calls, dw_calls
     convnet_launches = main_path_phase(torch, dev, models["convnet"])
     static_launches = static_phase(torch, dev, models["convnet_static"])
@@ -3805,10 +4005,13 @@ def main() -> int:
         launches it (fc1 and fc2, g128). No PyTorch call computes it:
         unfused_ms is the route it replaces, one int32 launch of K1 per
         group and the combine in PyTorch ops."""
+        sums, one = k1g["bs1024"], k1g["bs1"]
         e = entry("int8_gemm_grouped", "convnet_w4a8", "int8_gemm.cu",
                   "quantnet/ops/pallas_matmul.py:54 (grouped-K mode for quantnet/ops/linear.py:228-253)",
-                  launches, max(int8_err["grouped"], store_errs["convnet_w4a8"]["k1"]), k1g, None)
-        e.update(unfused_ms=k1g["library_ms"])
+                  launches, max(int8_err["grouped"], store_errs["convnet_w4a8"]["k1"]), sums, None)
+        e.update(unfused_ms=sums["library_ms"], back_to_back_ms=sums["back_to_back_ms"],
+                 bs1_ms=one["ms"], bs1_bound_ms=one["bound_ms"], bs1_plain_ms=one["plain_ms"],
+                 bs1_back_to_back_ms=one["back_to_back_ms"], plans=plans["grouped"])
         return e
 
     def k4_entry(launches):
@@ -3838,7 +4041,14 @@ def main() -> int:
                   "quantnet/quantize/common.py:90-113)", s4["launches"][kind],
                   store_errs["convnet_w4a8_s4"]["k1"], sums, None)
         e.update(int8_wide_ms=sums["library_ms"], bs1_ms=one["ms"], bs1_bound_ms=one["bound_ms"],
-                 bs1_plain_ms=one["plain_ms"], bs1_int8_wide_ms=one["library_ms"])
+                 bs1_plain_ms=one["plain_ms"], bs1_int8_wide_ms=one["library_ms"],
+                 back_to_back_ms=sums["back_to_back_ms"],
+                 int8_wide_back_to_back_ms=sums["wide_back_to_back_ms"],
+                 bs1_back_to_back_ms=one["back_to_back_ms"],
+                 bs1_int8_wide_back_to_back_ms=one["wide_back_to_back_ms"],
+                 plans=plans["packed_" + kind],
+                 s4_forward_graph_ms={f"bs{bs}": s4[f"graph_ms_bs{bs}"] for bs in S4_BATCHES},
+                 s4_forward_p50_ms={f"bs{bs}": s4[f"p50_bs{bs}"] for bs in S4_BATCHES})
         return e
 
     int8_err["mobilenetv2"] = store_errs["mobilenetv2"]["k1"]

@@ -39,10 +39,12 @@ _P, _I64, _C, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # int8_gemm(a[M,K] s8, b[N,K] s8, c[M,ldc], M, N, K, ldc, store, cs[N],
     #           rs[M], bias[N], zpw[N], act, out_scale, out_zero_point,
-    #           gs[G,N], gzpw[G,N], group, stream)
+    #           gs[G,N], gzpw[G,N], group, bn, stages, grid, smem, split,
+    #           slots, held, held_rows, stream)
     "int8_gemm": (
         "int8_gemm",
-        [_P, _P, _P, _I64, _I64, _I64, _I64, _C, _P, _P, _P, _P, _C, _F, _F, _P, _P, _I64, _P],
+        [_P, _P, _P, _I64, _I64, _I64, _I64, _C, _P, _P, _P, _P, _C, _F, _F, _P, _P, _I64,
+         *[_C] * 8, _P],
     ),
     # fused_dynamic_gemm(x[M,K] f32 or bf16, w[N,ldw] s8, w_scale[N], bias[N],
     #                    out[M,N] f32, M, N, K, ldw, block_k, x_is_bf16, relu,

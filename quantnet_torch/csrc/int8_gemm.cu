@@ -45,19 +45,30 @@
 // lines), double-buffered, so the stores drain while the next tile is
 // computed.
 //
-// Grouped-K mode (W4A8, quantnet/ops/linear.py:228-253, whose G-batched
-// int8 dot_general is not a Pallas kernel): the weight's scale changes every
-// `group` rows of K, so the reduction splits into G = K / group products,
-// each a K-slice of the same A and B. At each group boundary of the K loop a
-// consumer waits for its wgmmas, folds the int32 accumulator into an f32 one
-// in registers, facc += float(acc - gzpw[g, n]) * gs[g, n] in group order
-// 0..G-1 (the order of the JAX package's jnp.sum over G), and restarts acc
-// at zero; the epilogue then takes facc with s = cs[n] (the activation
-// scale). The (G, M, N) accumulator of the JAX package never reaches device
-// memory. The group is a multiple of 32 (one k32 wgmma) and divides K; the
-// mode runs 64-wide tiles (BN = 64: a second accumulator set in registers,
-// and more tiles for the small-M products of the classifier layers) and
-// stores f32 or int8.
+// Grouped-K mode (W4A8, quantnet/ops/linear.py:228-253, whose G-batched int8
+// dot_general is not a Pallas kernel): the weight's scale changes every `group`
+// rows of K, so the reduction splits into G = K / group products, each a
+// K-slice of the same A and B, folded in f32 in group order: facc = ((0 + t_0)
+// + t_1) + ... with t_g = float(acc_g - gzpw[g, n]) * gs[g, n] (the JAX
+// package's jnp.sum over G); the epilogue then takes facc with s = cs[n] (the
+// activation scale). The (G, M, N) accumulator of the JAX package never reaches
+// device memory. The group is a multiple of 32 (one k32 wgmma) and divides K;
+// the mode runs 64-wide tiles and stores f32 or int8. A consumer keeps two
+// int32 accumulator sets and issues its wgmmas in steps (a group's part of one
+// stage), each its own commit group: while the wgmmas of group g run into one
+// set, the other set's group g - 1 is waited for (wgmma_wait<1>) and folded, so
+// the tensor cores do not drain at a group boundary; a group's first wgmma does
+// not accumulate (scale-d 0), so no instruction clears a set while the other's
+// wgmmas run. Each group's gs and gzpw are read into registers two groups
+// before its fold. Where the tiles number fewer than the SMs and M <= 64, a
+// thread-block cluster of up to 8 CTAs splits each tile's groups: CTA r takes a
+// contiguous range of whole groups (and of stages), folds nothing itself but
+// keeps each group's t_g apart in shared memory as its products complete (rank
+// 0 folds into registers from 0), then waits for the running sum from CTA r - 1
+// (stored into its shared memory through the cluster's distributed shared
+// memory, with an arrive on its mbarrier), adds its t_g in order and hands the
+// sum on; the last CTA runs the epilogue and the store. So the sum is the same
+// sequence of f32 adds, bit for bit, and only those adds are serial.
 //
 // Packed-B mode (the s4 runtime's 4-bit weights; built as a library of its
 // own with QT_PACKED_B=1, quantnet_torch/_build.py VARIANTS, in both the
@@ -65,17 +76,34 @@
 // two's-complement nibbles packed along K, the even k in the low nibble, K a
 // multiple of 32. At bs1 the weight's bytes bound the product, and halving
 // them is the lever; at the convnet's bs1024 shapes A's bytes dominate. A
-// stage then loads BN x 64 bytes of B (128 nibbles of K a row) by a tensor
-// map of its own (64-byte box, no swizzle) into a packed buffer beside the
-// int8 B tile. The producer warpgroup's three idle warps widen it into that
-// tile, in the 128-byte swizzle wgmma reads: each nibble sign-extended by
-// ((x & 0x0F0F0F0F) ^ 0x08080808) - 0x08080808 per byte (__vsub4), lo and
-// hi interleaved by __byte_perm; then fence.proxy.async (wgmma reads
-// through the async proxy what they wrote through the generic one) and an
-// arrive on the stage's third mbarrier ("unpacked"), which the consumers
-// wait on after "full". One widening serves both consumers. TMA's zero fill
-// past N and K gives zero bytes, which widen to zeros: so the integers, and
-// every store, are the int8-wide launch's on the widened weight, bit for bit.
+// ring stage carries A and BN x 64 bytes of packed B (a tensor map of its
+// own, 64-byte box, no swizzle). The producer warpgroup's three idle warps
+// widen it into one of `slots` widened slots outside the ring (BN rows of
+// 128 bytes in the 128-byte swizzle wgmma reads), then fence.proxy.async
+// (wgmma reads through the async proxy what they wrote through the generic
+// one). A nibble goes into its byte's high half, 16 times its value (two
+// logic ops and two byte permutes per four bytes, no sign extension); the
+// int32 sums are shifted right by 4, exactly. Each slot has a pair of
+// mbarriers (widened: the unpackers to the consumers; free: the consumers'
+// wgmmas on it have completed), so widening runs up to `slots` stages ahead
+// of the wgmmas: four slots where the ring keeps the int8-wide launch's
+// stage count (the int8 store's staging buffers give up the room). Keeping
+// the whole widened B resident per block, where N fits one tile, measured
+// no faster than four slots, so B always streams. Where the tiles number
+// fewer than the SMs (a bs1 forward) and K runs to 16 stages or more, a
+// cluster of up to 8 CTAs splits each tile's K stages; ranks 1.. add their
+// int32 partials into rank 0's shared memory (red.shared::cluster.add,
+// exact in any order) and arrive on its mbarrier, and rank 0 runs the
+// epilogue and the one store.
+// TMA's zero fill past N and K gives zero bytes, which widen to zeros: so
+// the integers, and every store, are the int8-wide launch's on the widened
+// weight, bit for bit.
+//
+// The launch plan (tile width, stages, grid, split, widened slots, held
+// groups, shared memory bytes) is made in Python, ops/int8_matmul.py::
+// k1_plan, with the same shared-memory arithmetic as Layout below, and
+// passed in. The host side here checks it (the int8-wide normal mode: equal
+// to plan() below) and returns ERR_ARGS on a plan it does not take.
 #ifndef QT_PACKED_B
 #define QT_PACKED_B 0
 #endif
@@ -95,9 +123,12 @@ constexpr int BK = 128;           // K bytes per stage: one 128-byte swizzle row
 constexpr int THREADS = 384;      // producer warpgroup + two consumer warpgroups
 constexpr int CONSUMERS = 256;
 constexpr int MAX_STAGES = 8;
+constexpr int MAX_SPLIT = 8;      // CTAs of a cluster (the portable most)
+constexpr int MAX_SLOTS = 4;      // packed mode: widened B slots
 constexpr int ALIGN = 1024;       // the 128-byte swizzle repeats every 8 rows
 constexpr bool PACKED = QT_PACKED_B != 0;  // B nibble-packed (this library's mode)
 constexpr int UNPACKERS = 96;     // packed mode: warps 1-3 of the producer warpgroup
+constexpr int OUT_BUF = 64 * 128; // a staging buffer: 64 rows x one 128-byte swizzle row
 
 enum Store { STORE_INT32 = 0, STORE_F32 = 1, STORE_BF16 = 2, STORE_INT8 = 3 };
 
@@ -118,23 +149,59 @@ struct StoreTraits {
   static constexpr int BYTES = STORE == STORE_INT8 ? 1 : STORE == STORE_BF16 ? 2 : 4;
 };
 
-// Shared memory of one block: the ring, then each consumer's staging buffers
-// for the TMA store, then the barriers.
-template <int BN>
-struct Smem {
-  static constexpr int A_BYTES = BM * BK;
-  // Packed mode: the TMA-loaded half-width B (BN rows of 64 bytes) sits
-  // after the int8 B tile that the unpackers fill.
-  static constexpr int B_LOAD = PACKED ? A_BYTES + BN * BK : A_BYTES;
-  static constexpr int LOAD_BYTES = A_BYTES + (PACKED ? BN * BK / 2 : BN * BK);
-  static constexpr int STAGE_BYTES = A_BYTES + BN * BK + (PACKED ? BN * BK / 2 : 0);
-  static constexpr int OUT_BUF = 64 * 128;  // 64 rows x one 128-byte swizzle row
-  // Staging buffers of a consumer (TMA stores in flight): two at BN = 256,
-  // where more would cost a stage of the ring.
-  static constexpr int OUT_BUFS = BN == 256 ? 2 : 4;
-  static constexpr int STAGING = 2 * OUT_BUFS * OUT_BUF;
-  static constexpr int BARRIERS = (PACKED ? 3 : 2) * MAX_STAGES * 8;
-  static size_t bytes(int stages) { return ALIGN + (size_t)stages * STAGE_BYTES + STAGING + BARRIERS; }
+// Staging buffers of a consumer (TMA stores in flight): two at BN = 256,
+// where more would cost a stage of the ring, and for the int8 store of the
+// packed and grouped modes (one chunk a tile), whose space goes to widened
+// slots and stages.
+__host__ __device__ constexpr int out_bufs(int bn, int store, bool modes) {
+  return bn == 256 || (modes && store == STORE_INT8) ? 2 : 4;
+}
+
+// The launch's plan (ops/int8_matmul.py::k1_plan makes it; the host side
+// checks it) and what the kernel needs of it.
+struct Params {
+  int M, N, K;
+  int stages;     // ring stages
+  int split;      // CTAs of a cluster sharing one tile's K (1: none)
+  int slots;      // packed mode: widened B slots (2-4)
+  int held;       // grouped split: groups a rank keeps apart
+  int held_rows;  // grouped split: rows of a tile those groups keep (16 | it)
+  int unit;       // grouped split: K rows of the unit ranks split by, lcm(group, BK)
+};
+
+// Shared memory of one block, in this order (byte offsets from the
+// 1024-aligned base): the ring of `stages` stages (A, then B: int8 BN x
+// 128, or packed BN x 64); the packed mode's `slots` widened B slots (BN x
+// 128 each); a packed split's int32
+// partials (rank 0 sums them there); the grouped split's held t_g (held x
+// held_rows x BN f32); both consumers' staging buffers for the TMA store (in
+// a grouped split, also where the running sum is handed in); the mbarriers.
+// ops/int8_matmul.py::layout_bytes is the same arithmetic.
+struct Layout {
+  int stage, ring, wide, reduce, held, staging, bars, total;
+};
+
+__host__ __device__ inline Layout make_layout(int bn, bool grouped, int store, int stages, int slots,
+                                              int split, int held, int held_rows) {
+  Layout l;
+  l.stage = BM * BK + (PACKED ? bn * BK / 2 : bn * BK);
+  l.ring = stages * l.stage;
+  l.wide = l.ring;
+  l.reduce = l.wide + (PACKED ? slots * bn * BK : 0);
+  l.held = l.reduce + (PACKED && !grouped && split > 1 ? 2 * 64 * bn * 4 : 0);
+  l.staging = l.held + (grouped && split > 1 ? held * held_rows * bn * 4 : 0);
+  l.bars = l.staging + 2 * out_bufs(bn, store, PACKED || grouped) * OUT_BUF;
+  l.total = ALIGN + l.bars + (!PACKED && split == 1 ? 2 * MAX_STAGES * 8 : 256);
+  return l;
+}
+
+// mbarrier slots after the staging buffers: the ring's (full: the bytes
+// arrived; empty: both consumers are done with the stage); the packed
+// mode's widened slots (widened, free); a split's hand-off (one per
+// consumer warpgroup) and reduction.
+enum Bar {
+  BAR_FULL = 0, BAR_EMPTY = MAX_STAGES, BAR_WIDE = 2 * MAX_STAGES, BAR_FREE = BAR_WIDE + MAX_SLOTS,
+  BAR_HAND = BAR_FREE + MAX_SLOTS, BAR_REDUCE = BAR_HAND + 2
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -170,6 +237,50 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   }
+}
+
+// The same wait with acquire at cluster scope: for a barrier that another
+// CTA of the cluster arrives on after writing this CTA's shared memory.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, unsigned parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// Thread-block clusters: this CTA's rank, the address of `p` in the shared
+// memory of CTA `rank`, stores, integer adds and mbarrier arrives there, and
+// a barrier over every thread of the cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v) : "memory");
+}
+__device__ __forceinline__ void red_cluster_add(uint32_t addr, int v) {
+  asm volatile("red.shared::cluster.add.s32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t remote_bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(remote_bar) : "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 // L2 policies: C is written once (evict first); B is read again by every
@@ -369,10 +480,10 @@ __device__ __forceinline__ void write_chunk(const T (&acc)[BN / 2], int q, int M
 // columns) are written from the fragments into a staging buffer in the
 // 128-byte swizzle (conflict-free), then stored by one TMA store. The
 // buffers are taken in turn across tiles (`seq` counts the chunks), so up
-// to Smem::OUT_BUFS stores drain while the next chunks, and the next tile's
+// to NBUF stores drain while the next chunks, and the next tile's
 // products, are computed. `cols` holds the first chunk's per-column vectors
 // and `rs` the two rows' per-row scales, read before the products.
-template <int BN, int STORE, bool NARROW, typename T>
+template <int BN, int STORE, bool NARROW, int NBUF, typename T>
 __device__ __forceinline__ void store_tile(T (&acc)[BN / 2], const CUtensorMap* tmap_c, int M,
                                            int N, int row0, int n0, const Epilogue& e,
                                            ChunkCols<Chunks<BN, STORE>::PV> cols,
@@ -381,8 +492,7 @@ __device__ __forceinline__ void store_tile(T (&acc)[BN / 2], const CUtensorMap* 
   using C = Chunks<BN, STORE>;
 #pragma unroll
   for (int q = 0; q < C::CHUNKS; ++q, ++seq) {
-    constexpr int NBUF = Smem<BN>::OUT_BUFS;
-    uint8_t* buf = stg + (seq % NBUF) * Smem<BN>::OUT_BUF;
+    uint8_t* buf = stg + (seq % NBUF) * OUT_BUF;
     ChunkCols<C::PV> next{};  // the next chunk's vectors, read now
     if (STORE != STORE_INT32 && q + 1 < C::CHUNKS)
       load_cols(next, e, n0 + (q + 1) * C::JC * 8, N, tid & 31);
@@ -403,10 +513,13 @@ __device__ __forceinline__ void store_tile(T (&acc)[BN / 2], const CUtensorMap* 
 }
 
 // Eight 4-bit values packed in x (two's complement, the even one in the low
-// nibble of each byte) -> eight int8 values in a (the first four) and b.
+// nibble of each byte) -> eight int8 values in a (the first four) and b,
+// each 16 times its nibble's value: the nibble moved into its byte's high
+// half, the low half zero (two logic ops and two byte permutes; no sign
+// extension). Every product, and so every int32 sum, is then 16 times the
+// int8-wide one, which an arithmetic shift right by 4 gives back exactly.
 __device__ __forceinline__ void unpack_nibbles8(uint32_t x, uint32_t& a, uint32_t& b) {
-  const uint32_t lo = __vsub4((x & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-  const uint32_t hi = __vsub4(((x >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+  const uint32_t lo = (x << 4) & 0xF0F0F0F0u, hi = x & 0xF0F0F0F0u;
   a = __byte_perm(lo, hi, 0x5140);
   b = __byte_perm(lo, hi, 0x7362);
 }
@@ -431,75 +544,107 @@ __device__ __forceinline__ void unpack_stage(const uint8_t* src, uint8_t* dst, i
   }
 }
 
-// Grouped mode: at the end of group gi, acc (this thread's fragments of the
-// tile, columns n0..) folds into facc in f32, facc += float(acc - gzpw[gi, n])
-// * gs[gi, n], and restarts at zero. Columns past N hold zeros on both sides.
-template <int BN>
-__device__ __forceinline__ void fold_group(int (&acc)[BN / 2], float (&facc)[BN / 2], int gi,
-                                           int n0, int N, const Epilogue& e, int tid) {
-  const int32_t* z = e.gzpw + static_cast<size_t>(gi) * N;
-  const float* s = e.gs + static_cast<size_t>(gi) * N;
-  const int cq = 2 * (tid & 3);
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int col = n0 + 8 * j + cq;
-    const int z0 = col < N ? __ldg(z + col) : 0, z1 = col + 1 < N ? __ldg(z + col + 1) : 0;
-    const float s0 = col < N ? __ldg(s + col) : 0.0f, s1 = col + 1 < N ? __ldg(s + col + 1) : 0.0f;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = 4 * j + 2 * h;
-      facc[i] = __fadd_rn(facc[i], __fmul_rn(__int2float_rn(acc[i] - z0), s0));
-      facc[i + 1] = __fadd_rn(facc[i + 1], __fmul_rn(__int2float_rn(acc[i + 1] - z1), s1));
-      acc[i] = 0;
-      acc[i + 1] = 0;
-    }
-  }
-}
-
 template <int BN, int STORE, bool GROUPED>
 __global__ void __launch_bounds__(THREADS, 1)
     int8_gemm_kernel(const __grid_constant__ CUtensorMap tmap_a,
                      const __grid_constant__ CUtensorMap tmap_b,
-                     const __grid_constant__ CUtensorMap tmap_c, int M, int N, int K, int stages,
-                     Epilogue epi) {
-  using L = Smem<BN>;
+                     const __grid_constant__ CUtensorMap tmap_c, const Params p, const Epilogue epi) {
+  // The packed library and the grouped mode take the plan's split, widened
+  // slots and held groups; the int8-wide normal mode is one persistent block
+  // per SM with the plan's stages.
+  constexpr bool MODES = PACKED || GROUPED;
+  const int M = p.M, N = p.N, K = p.K, stages = p.stages;
+  const int split = MODES ? p.split : 1;
+  const int ksteps = (K + BK - 1) / BK;
+  const Layout lay = make_layout(BN, GROUPED, STORE, stages, p.slots, split, p.held, p.held_rows);
+  constexpr int NBUF = out_bufs(BN, STORE, MODES);
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = smem_raw + ((ALIGN - (smem_u32(smem_raw) & (ALIGN - 1))) & (ALIGN - 1));
-  uint8_t* staging = ring + stages * L::STAGE_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(staging + L::STAGING);
-  uint64_t* empty = full + MAX_STAGES;
-  uint64_t* unpacked = empty + MAX_STAGES;  // packed mode only
+  uint8_t* wide = ring + lay.wide;
+  uint8_t* reduce = ring + lay.reduce;
+  float* held = reinterpret_cast<float*>(ring + lay.held);
+  uint8_t* staging = ring + lay.staging;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + lay.bars);
+  uint64_t* full = bars + BAR_FULL;
+  uint64_t* empty = bars + BAR_EMPTY;
 
   const int num_n = (N + BN - 1) / BN;
   const int tiles = ((M + BM - 1) / BM) * num_n;
-  const int ksteps = (K + BK - 1) / BK;
-  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  // The warpgroup index; in the packed and grouped modes warp-uniform to
+  // the compiler (as it is): wgmma in a branch on a value it takes for
+  // divergent is serialized.
+  const int wg = MODES ? __shfl_sync(~0u, static_cast<int>(threadIdx.x) / 128, 0)
+                       : static_cast<int>(threadIdx.x) / 128;
+  const int tid = threadIdx.x % 128;
+  // A split: cluster t takes tile t and CTA `rank` its part of K; otherwise
+  // the persistent grid walks the tiles. This CTA's K rows [kb, ke) are
+  // whole stages ks0 .. ks1 - 1 (a grouped split's ranks take whole units
+  // of lcm(group, BK) rows, so whole groups).
+  const int rank = split > 1 ? __shfl_sync(~0u, static_cast<int>(cluster_rank()), 0) : 0;
+  const int t_first = split > 1 ? static_cast<int>(blockIdx.x) / split : static_cast<int>(blockIdx.x);
+  const int t_step = split > 1 ? tiles : static_cast<int>(gridDim.x);
+  int kb = 0, ke = K;
+  if (split > 1) {
+    if (GROUPED) {
+      const int units = K / p.unit;
+      kb = units * rank / split * p.unit;
+      ke = units * (rank + 1) / split * p.unit;
+    } else {
+      kb = ksteps * rank / split * BK;
+      ke = min(ksteps * (rank + 1) / split * BK, K);
+    }
+  }
+  const int ks0 = kb / BK, ks1 = (ke + BK - 1) / BK;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], CONSUMERS);
-      if constexpr (PACKED) mbar_init(&unpacked[s], UNPACKERS);
+    }
+    if constexpr (PACKED) {
+      for (int s = 0; s < p.slots; ++s) {
+        mbar_init(&bars[BAR_WIDE + s], UNPACKERS);
+        mbar_init(&bars[BAR_FREE + s], CONSUMERS);
+      }
+    }
+    if (split > 1) {
+      mbar_init(&bars[BAR_HAND], 128);
+      mbar_init(&bars[BAR_HAND + 1], 128);
+      mbar_init(&bars[BAR_REDUCE], (split - 1) * CONSUMERS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   }
+  // A split of the packed normal mode: rank 0's reduce area takes the other
+  // ranks' int32 partials by atomic adds, from zero.
+  if (PACKED && !GROUPED && split > 1 && rank == 0) {
+    uint4* z = reinterpret_cast<uint4*>(reduce);
+    for (int i = threadIdx.x; i < 2 * 64 * BN * 4 / 16; i += THREADS) z[i] = make_uint4(0, 0, 0, 0);
+  }
   __syncthreads();
+  if (split > 1) cluster_sync();  // every CTA's barriers (and rank 0's zeros) before any remote access
 
   if (wg == 0) {
+    // The packed and grouped modes hand the producer warpgroup's registers
+    // to the consumers (two accumulator sets, or a 256-wide tile, and the
+    // epilogue).
+    if constexpr (MODES) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
     if (tid >= 32) {
-      // Packed mode: warps 1-3 widen each stage's B once it has arrived.
+      // Packed mode: warps 1-3 widen each stage's B into the next free slot
+      // once the stage has arrived.
       if constexpr (PACKED) {
-        int stage = 0;
-        unsigned phase = 0;
-        for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-          for (int ks = 0; ks < ksteps; ++ks) {
+        const int u = tid - 32;
+        int stage = 0, slot = 0;
+        unsigned phase = 0, sphase = 0;
+        for (int t = t_first; t < tiles; t += t_step) {
+          for (int ks = ks0; ks < ks1; ++ks) {
             mbar_wait(&full[stage], phase);
-            uint8_t* st = ring + stage * L::STAGE_BYTES;
-            unpack_stage<BN>(st + L::B_LOAD, st + L::A_BYTES, tid - 32);
+            mbar_wait(&bars[BAR_FREE + slot], sphase ^ 1);
+            unpack_stage<BN>(ring + stage * lay.stage + BM * BK, wide + slot * (BN * BK), u);
             asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // visible to wgmma
-            mbar_arrive(&unpacked[stage]);
+            mbar_arrive(&bars[BAR_WIDE + slot]);
             if (++stage == stages) stage = 0, phase ^= 1;
+            if (++slot == p.slots) slot = 0, sphase ^= 1;
           }
         }
       }
@@ -510,101 +655,324 @@ __global__ void __launch_bounds__(THREADS, 1)
     asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tmap_a)) : "memory");
     asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tmap_b)) : "memory");
     const uint64_t keep_a = l2_policy_evict_last(), keep_b = keep_a;
+    const unsigned bytes = BM * BK + (PACKED ? BN * BK / 2 : BN * BK);
     int stage = 0;
     unsigned phase = 0;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    for (int t = t_first; t < tiles; t += t_step) {
       const int m0 = (t / num_n) * BM, n0 = (t % num_n) * BN;
-      for (int ks = 0; ks < ksteps; ++ks) {
+      for (int ks = ks0; ks < ks1; ++ks) {
         mbar_wait(&empty[stage], phase ^ 1);
-        uint8_t* sa = ring + stage * L::STAGE_BYTES;
-        mbar_expect_tx(&full[stage], L::LOAD_BYTES);
+        uint8_t* sa = ring + stage * lay.stage;
+        mbar_expect_tx(&full[stage], bytes);
         tma_load(sa, &tmap_a, &full[stage], ks * BK, m0, keep_a);
-        tma_load(sa + L::B_LOAD, &tmap_b, &full[stage], PACKED ? ks * BK / 2 : ks * BK, n0, keep_b);
+        tma_load(sa + BM * BK, &tmap_b, &full[stage], PACKED ? ks * BK / 2 : ks * BK, n0, keep_b);
         if (++stage == stages) stage = 0, phase ^= 1;
       }
     }
     return;
-  }
-
-  // Consumers: warpgroup c = wg - 1 owns rows 64c .. 64c + 63 of each tile.
-  const int c = wg - 1;
-  uint8_t* stg = staging + c * L::OUT_BUFS * L::OUT_BUF;
-  unsigned seq = 0;  // chunks stored so far
-  int acc[BN / 2];
-  float facc[GROUPED ? BN / 2 : 1];  // grouped mode: the f32 sum over the groups so far
-  int stage = 0, prev = 0;
-  unsigned phase = 0;
-  const int rq = (tid >> 5) * 16 + ((tid & 31) >> 2);  // this thread's first fragment row
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int m0 = (t / num_n) * BM, n0 = (t % num_n) * BN;
-    // The epilogue's per-column and per-row values, read while the products run.
-    ChunkCols<Chunks<BN, STORE>::PV> cols{};
-    float rs[2] = {0.0f, 0.0f};
-    if constexpr (STORE != STORE_INT32) {
-      load_cols(cols, epi, n0, N, tid & 31);
-      if (epi.rs) {
+  } else {
+    if constexpr (MODES) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+    // Consumers: warpgroup c = wg - 1 owns rows 64c .. 64c + 63 of each tile.
+    const int c = wg - 1;
+    uint8_t* stg = staging + c * NBUF * OUT_BUF;
+    unsigned seq = 0;  // chunks stored so far
+    const int rq = (tid >> 5) * 16 + ((tid & 31) >> 2);  // this thread's first fragment row
+    int stage = 0;
+    unsigned phase = 0;
+    if constexpr (!MODES) {
+      int acc[BN / 2];
+      int prev = 0;
+      for (int t = t_first; t < tiles; t += t_step) {
+        const int m0 = (t / num_n) * BM, n0 = (t % num_n) * BN;
+        // The epilogue's per-column and per-row values, read while the products run.
+        ChunkCols<Chunks<BN, STORE>::PV> cols{};
+        float rs[2] = {0.0f, 0.0f};
+        if constexpr (STORE != STORE_INT32) {
+          load_cols(cols, epi, n0, N, tid & 31);
+          if (epi.rs) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = m0 + 64 * c + rq + 8 * h;
-          if (row < M) rs[h] = __ldg(epi.rs + row);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
-    int gi = 0;  // grouped mode: the group in progress
-    if constexpr (GROUPED) {
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) facc[i] = 0.0f;
-    }
-    for (int ks = 0; ks < ksteps; ++ks) {
-      mbar_wait(&full[stage], phase);
-      if constexpr (PACKED) mbar_wait(&unpacked[stage], phase);
-      const uint8_t* sa = ring + stage * L::STAGE_BYTES + c * 64 * BK;
-      const uint8_t* sb = ring + stage * L::STAGE_BYTES + L::A_BYTES;
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) fence_reg(acc[i]);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 32; ++kk) {
-        const int k0 = ks * BK + kk * 32;
-        // Past K the tile holds zeros: skip those products.
-        if (k0 < K) {
-          qt::WgmmaS8<BN>::mma(acc, smem_desc(sa + 32 * kk), smem_desc(sb + 32 * kk));
-          if constexpr (GROUPED) {
-            if ((k0 + 32) % epi.group == 0) {  // the group ends here: fold it into facc
-              wgmma_commit();
-              wgmma_wait<0>();
-#pragma unroll
-              for (int i = 0; i < BN / 2; ++i) fence_reg(acc[i]);
-              fold_group<BN>(acc, facc, gi++, n0, N, epi, tid);
-#pragma unroll
-              for (int i = 0; i < BN / 2; ++i) fence_reg(acc[i]);
-              wgmma_fence();
+            for (int h = 0; h < 2; ++h) {
+              const int row = m0 + 64 * c + rq + 8 * h;
+              if (row < M) rs[h] = __ldg(epi.rs + row);
             }
           }
         }
-      }
-      wgmma_commit();
-      // Keep this stage's products in flight; the previous stage's are done,
-      // so its buffers go back to the producer.
-      wgmma_wait<1>();
-      if (ks > 0) mbar_arrive(&empty[prev]);
-      prev = stage;
-      if (++stage == stages) stage = 0, phase ^= 1;
-    }
-    wgmma_wait<0>();
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) fence_reg(acc[i]);
-    mbar_arrive(&empty[prev]);
-    if constexpr (GROUPED)
-      store_tile<BN, STORE, narrow_store(BN, STORE, GROUPED)>(facc, &tmap_c, M, N, m0 + 64 * c, n0,
-                                                              epi, cols, rs, stg, tid, 1 + c, seq);
-    else
-      store_tile<BN, STORE, narrow_store(BN, STORE, GROUPED)>(acc, &tmap_c, M, N, m0 + 64 * c, n0,
-                                                              epi, cols, rs, stg, tid, 1 + c, seq);
+        for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+        for (int ks = 0; ks < ksteps; ++ks) {
+          mbar_wait(&full[stage], phase);
+          const uint8_t* sa = ring + stage * lay.stage + c * 64 * BK;
+          const uint8_t* sb = ring + stage * lay.stage + BM * BK;
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) fence_reg(acc[i]);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BK / 32; ++kk) {
+            // Past K the tile holds zeros: skip those products.
+            if (ks * BK + kk * 32 < K)
+              qt::WgmmaS8<BN>::mma(acc, smem_desc(sa + 32 * kk), smem_desc(sb + 32 * kk));
+          }
+          wgmma_commit();
+          // Keep this stage's products in flight; the previous stage's are done,
+          // so its buffers go back to the producer.
+          wgmma_wait<1>();
+          if (ks > 0) mbar_arrive(&empty[prev]);
+          prev = stage;
+          if (++stage == stages) stage = 0, phase ^= 1;
+        }
+        wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) fence_reg(acc[i]);
+        mbar_arrive(&empty[prev]);
+        store_tile<BN, STORE, false, NBUF>(acc, &tmap_c, M, N, m0 + 64 * c, n0, epi, cols, rs, stg, tid,
+                                     1 + c, seq);
+      }
+    } else {
+      // The packed mode's widened slots and the stages given back, in order:
+      // the ring's and, in the packed mode, the slot's.
+      int slot = 0, rel = 0, rel_slot = 0;
+      unsigned sphase = 0;
+      // The epilogue's per-column and per-row values of a tile, read while its
+      // products run.
+      auto load_epilogue = [&](ChunkCols<Chunks<BN, STORE>::PV>& cols, float (&rs)[2], int m0, int n0) {
+        if constexpr (STORE != STORE_INT32) {
+          load_cols(cols, epi, n0, N, tid & 31);
+          if (epi.rs) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = m0 + 64 * c + rq + 8 * h;
+              if (row < M) rs[h] = __ldg(epi.rs + row);
+            }
+          }
+        }
+      };
+      auto acquire = [&](const uint8_t*& sa, const uint8_t*& sb) {
+        mbar_wait(&full[stage], phase);
+        sa = ring + stage * lay.stage + c * 64 * BK;
+        if constexpr (PACKED) {
+          mbar_wait(&bars[BAR_WIDE + slot], sphase);
+          sb = wide + slot * (BN * BK);
+        } else {
+          sb = ring + stage * lay.stage + BM * BK;
+        }
+      };
+      auto advance = [&]() {
+        if (++stage == stages) stage = 0, phase ^= 1;
+        if (PACKED && ++slot == p.slots) slot = 0, sphase ^= 1;
+      };
+      auto release = [&]() {
+        mbar_arrive(&empty[rel]);
+        if (++rel == stages) rel = 0;
+        if (PACKED) {
+          mbar_arrive(&bars[BAR_FREE + rel_slot]);
+          if (++rel_slot == p.slots) rel_slot = 0;
+        }
+      };
+      if constexpr (!GROUPED) {
+        // Packed mode, normal: as above, over this CTA's stages.
+        int acc[BN / 2];
+        for (int t = t_first; t < tiles; t += t_step) {
+          const int m0 = (t / num_n) * BM, n0 = (t % num_n) * BN;
+          ChunkCols<Chunks<BN, STORE>::PV> cols{};
+          float rs[2] = {0.0f, 0.0f};
+          load_epilogue(cols, rs, m0, n0);
+          const bool active = m0 + 64 * c < M;
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+          for (int ks = ks0; ks < ks1; ++ks) {
+            const uint8_t *sa, *sb;
+            acquire(sa, sb);
+#pragma unroll
+            for (int i = 0; i < BN / 2; ++i) fence_reg(acc[i]);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < BK / 32; ++kk) {
+              if (ks * BK + kk * 32 < K)
+                qt::WgmmaS8<BN>::mma(acc, smem_desc(sa + 32 * kk), smem_desc(sb + 32 * kk));
+            }
+            wgmma_commit();
+            wgmma_wait<1>();
+            if (ks > ks0) release();
+            advance();
+          }
+          wgmma_wait<0>();
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) fence_reg(acc[i]);
+          release();
+          if (split > 1) {
+            // Ranks 1.. add their int32 partials into rank 0's reduce area
+            // (this warpgroup's half, thread-major; none where its rows all lie
+            // past M), then arrive on its barrier.
+            uint8_t* part_c = reduce + c * 64 * BN * 4;
+            if (rank != 0) {
+              const uint32_t dst = map_rank(part_c, 0);
+              if (active) {
+#pragma unroll
+                for (int i = 0; i < BN / 2; ++i) red_cluster_add(dst + 4 * (i * 128 + tid), acc[i]);
+              }
+              mbar_arrive_cluster(map_rank(&bars[BAR_REDUCE], 0));
+              continue;
+            }
+            mbar_wait_cluster(&bars[BAR_REDUCE], 0);
+            const int* part = reinterpret_cast<const int*>(part_c);
+#pragma unroll
+            for (int i = 0; i < BN / 2; ++i) acc[i] += part[i * 128 + tid];
+          }
+          // The widened weight is 16 x the nibbles: so is every sum.
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) acc[i] >>= 4;
+          store_tile<BN, STORE, false, NBUF>(acc, &tmap_c, M, N, m0 + 64 * c, n0, epi, cols, rs, stg, tid,
+                                       1 + c, seq);
+        }
+      } else {
+        // Grouped mode: two accumulator sets, steps of (a group) x (a stage),
+        // each a commit group. After a group's first step is issued, the
+        // previous group's set is waited for and folded (rank 0: into facc,
+        // in order; ranks 1..: its t_g kept in `held`), and the gs and gzpw
+        // of the group after this one are read into that set's vectors, two
+        // groups ahead of their fold (a load's latency is longer than one
+        // group's products).
+        int acc0[BN / 2], acc1[BN / 2];
+        float facc[BN / 2];
+        int z0[BN / 4], z1[BN / 4];
+        float s0[BN / 4], s1[BN / 4];
+        const int gc = epi.group / 32;  // k32 chunks of a group
+        const int warp = __shfl_sync(~0u, tid >> 5, 0), lane = tid & 31, cq = 2 * (tid & 3);
+        const int gw = 4 * c + warp;  // this warp's rows of the tile: 16 gw .. 16 gw + 15
+        const bool holds = 16 * gw < p.held_rows;
+        const int hw = p.held_rows / 16;
+        for (int t = t_first; t < tiles; t += t_step) {
+          const int m0 = (t / num_n) * BM, n0 = (t % num_n) * BN;
+          ChunkCols<Chunks<BN, STORE>::PV> cols{};
+          float rs[2] = {0.0f, 0.0f};
+          load_epilogue(cols, rs, m0, n0);
+          const int c_end = ke / 32, g0 = kb / epi.group, g1 = ke / epi.group;
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) facc[i] = 0.0f;
+          bool pend = false;  // the last step ended a stage: give it back once done
+          const uint8_t *sa = nullptr, *sb = nullptr;
+          // Group g's gs and gzpw at this thread's columns, in pairs where N
+          // is even (8-byte aligned rows).
+          auto load_vec = [&](int (&vz)[BN / 4], float (&vs)[BN / 4], int g) {
+            const int32_t* z = epi.gzpw + static_cast<size_t>(g) * N;
+            const float* s = epi.gs + static_cast<size_t>(g) * N;
+#pragma unroll
+            for (int j = 0; j < BN / 8; ++j) {
+              const int col = n0 + 8 * j + cq;
+              if ((N & 1) == 0) {
+                const int2 zz = col < N ? __ldg(reinterpret_cast<const int2*>(z + col)) : make_int2(0, 0);
+                const float2 ss =
+                    col < N ? __ldg(reinterpret_cast<const float2*>(s + col)) : make_float2(0.0f, 0.0f);
+                vz[2 * j] = zz.x, vz[2 * j + 1] = zz.y, vs[2 * j] = ss.x, vs[2 * j + 1] = ss.y;
+              } else {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  vz[2 * j + e] = col + e < N ? __ldg(z + col + e) : 0;
+                  vs[2 * j + e] = col + e < N ? __ldg(s + col + e) : 0.0f;
+                }
+              }
+            }
+          };
+          // t_g = float(acc_g - gzpw[g, n]) * gs[g, n], columns past N zeros
+          // (a packed B's acc_g is 16 x the int8-wide one); rank 0 adds it to
+          // facc, a later rank keeps it. The set is not cleared: the next
+          // group's first wgmma into it does not accumulate.
+          auto retire = [&](int (&x)[BN / 2], const int (&vz)[BN / 4], const float (&vs)[BN / 4], int g) {
+#pragma unroll
+            for (int i = 0; i < BN / 2; ++i) fence_reg(x[i]);
+            auto term = [&](int i) {
+              const int v = (i / 4) * 2 + (i & 1);  // column 8 (i / 4) + cq + (i & 1)
+              return __fmul_rn(__int2float_rn((PACKED ? x[i] >> 4 : x[i]) - vz[v]), vs[v]);
+            };
+            if (rank == 0) {
+#pragma unroll
+              for (int i = 0; i < BN / 2; ++i) facc[i] = __fadd_rn(facc[i], term(i));
+            } else if (holds) {
+              float* h = held + ((g - g0) * hw + gw) * (BN / 2) * 32 + lane;
+#pragma unroll
+              for (int i = 0; i < BN / 2; ++i) h[i * 32] = term(i);
+            }
+          };
+          // Group g into x (vectors zx, sx, read before); group g - 1 is in y
+          // (vectors zy, sy), which then take group g + 1's.
+          auto run_group = [&](int (&x)[BN / 2], int (&y)[BN / 2], int (&zy)[BN / 4], float (&sy)[BN / 4],
+                               int g) {
+            for (int ci = g * gc; ci < (g + 1) * gc;) {
+              const int kk = ci & 3;
+              if (kk == 0) acquire(sa, sb);
+              const int n = min((g + 1) * gc - ci, 4 - kk);
+#pragma unroll
+              for (int i = 0; i < BN / 2; ++i) fence_reg(x[i]);
+              wgmma_fence();
+              for (int q = 0; q < n; ++q)
+                qt::WgmmaS8<BN>::mma(x, smem_desc(sa + 32 * (kk + q)), smem_desc(sb + 32 * (kk + q)),
+                                     q > 0 || ci > g * gc);
+              wgmma_commit();
+              const bool ends = kk + n == 4 || ci + n == c_end;
+              wgmma_wait<1>();  // the step before this one is done
+              if (pend) release();
+              if (ci == g * gc) {
+                if (g > g0) retire(y, zy, sy, g - 1);
+                if (g + 1 < g1) load_vec(zy, sy, g + 1);
+              }
+              pend = ends;
+              if (ends) advance();
+              ci += n;
+            }
+          };
+          // Groups g0, g0 + 2, .. run in acc0 with vectors z0, s0; the others
+          // in acc1 with z1, s1.
+          load_vec(z0, s0, g0);
+          run_group(acc0, acc1, z1, s1, g0);
+          int g = g0 + 1;
+          for (; g + 1 < g1; g += 2) {
+            run_group(acc1, acc0, z0, s0, g);
+            run_group(acc0, acc1, z1, s1, g + 1);
+          }
+          if (g < g1) {
+            run_group(acc1, acc0, z0, s0, g);
+            wgmma_wait<0>();
+            retire(acc1, z1, s1, g);
+          } else {
+            wgmma_wait<0>();
+            retire(acc0, z0, s0, g - 1);
+          }
+          if (pend) release();
+          if (split > 1) {
+            // The ordered hand-off: the running sum from rank - 1, this rank's
+            // t_g added in order, the sum on to rank + 1 (into this warpgroup's
+            // staging buffers there, warp-major); the last rank stores.
+            if (rank > 0) {
+              mbar_wait_cluster(&bars[BAR_HAND + c], 0);
+              const float* sum = reinterpret_cast<const float*>(stg);
+              if (holds) {
+#pragma unroll
+                for (int i = 0; i < BN / 2; ++i) facc[i] = sum[(warp * (BN / 2) + i) * 32 + lane];
+                for (int j = 0; j < g1 - g0; ++j) {
+#pragma unroll
+                  for (int i = 0; i < BN / 2; ++i)
+                    facc[i] = __fadd_rn(facc[i], held[((j * hw + gw) * (BN / 2) + i) * 32 + lane]);
+                }
+              }
+            }
+            if (rank + 1 < split) {
+              const uint32_t dst = map_rank(stg, rank + 1);
+              if (holds) {
+#pragma unroll
+                for (int i = 0; i < BN / 2; ++i)
+                  st_cluster(dst + 4 * ((warp * (BN / 2) + i) * 32 + lane), facc[i]);
+              }
+              mbar_arrive_cluster(map_rank(&bars[BAR_HAND + c], rank + 1));
+              continue;
+            }
+          }
+          store_tile<BN, STORE, narrow_store(BN, STORE, true), NBUF>(facc, &tmap_c, M, N, m0 + 64 * c, n0, epi,
+                                                               cols, rs, stg, tid, 1 + c, seq);
+        }
+      }
+    }
+    if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
   }
-  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 // The int8 store's requantize alone, elementwise, as the epilogue runs it
@@ -692,82 +1060,167 @@ double wave_fill(long long tiles, int sms) {
   return static_cast<double>(tiles) / static_cast<double>(waves * sms);
 }
 
-// How a launch is laid out: tile width, ring stages, dynamic shared memory
-// and grid.
+// How a launch is laid out (ops/int8_matmul.py::Plan).
 struct Plan {
-  int bn = 0, stages = 0, smem = 0, grid = 0;
+  int bn = 0, stages = 0, grid = 0, smem = 0, split = 1, slots = 0, held = 0, held_rows = 0;
 };
 
-template <int BN>
-void fill_plan(Plan& p, const DeviceInfo& d, int M, int N) {
-  using L = Smem<BN>;
-  const int stages = static_cast<int>((d.smem - L::bytes(0)) / L::STAGE_BYTES);
-  p.bn = BN;
-  p.stages = stages > MAX_STAGES ? MAX_STAGES : stages;
-  p.smem = static_cast<int>(L::bytes(p.stages));
-  const long long tiles = static_cast<long long>((M + BM - 1) / BM) * ((N + BN - 1) / BN);
-  p.grid = static_cast<int>(tiles < d.sms ? tiles : d.sms);
-}
+int gcd_int(int a, int b) { return b ? gcd_int(b, a % b) : a; }
 
-// The narrowest tile that covers N, up to 256 (A is read once). Past 128,
-// 128-wide tiles for the int8 store (its epilogue's registers spill beside
-// 128 accumulators a thread) and where 256-wide ones would leave much of the
-// last wave idle (ResNet-50's 25088 x K x 256 GEMMs: 196 tiles on 132 SMs,
-// against 392); their A tile is read again from L2. The grouped mode takes
-// 64-wide tiles.
-Plan plan(int M, int N, int store, bool grouped) {
+// The int8-wide normal mode's plan. The narrowest tile that covers N, up to
+// 256 (A is read once). Past 128, 128-wide tiles for the int8 store (its
+// epilogue's registers spill beside 128 accumulators a thread) and where
+// 256-wide ones would leave much of the last wave idle (ResNet-50's 25088 x
+// K x 256 GEMMs: 196 tiles on 132 SMs, against 392); their A tile is read
+// again from L2. As many stages as fit, one persistent block per SM.
+Plan plan(int M, int N, int K, int store) {
   const DeviceInfo& d = device_info();
   Plan p;
   const long long mt = (M + BM - 1) / BM;
-  if (N <= 64 || grouped)
-    fill_plan<64>(p, d, M, N);
+  if (N <= 64)
+    p.bn = 64;
   else if (N <= 128 || store == STORE_INT8 ||
            wave_fill(mt * ((N + 127) / 128), d.sms) > wave_fill(mt * ((N + 255) / 256), d.sms) + 0.15)
-    fill_plan<128>(p, d, M, N);
+    p.bn = 128;
   else
-    fill_plan<256>(p, d, M, N);
+    p.bn = 256;
+  const Layout none = make_layout(p.bn, false, store, 0, 0, 1, 0, 0);
+  const int stages = (d.smem - none.total) / make_layout(p.bn, false, store, 1, 0, 1, 0, 0).stage;
+  p.stages = stages > MAX_STAGES ? MAX_STAGES : stages;
+  p.smem = make_layout(p.bn, false, store, p.stages, 0, 1, 0, 0).total;
+  const long long tiles = mt * ((N + p.bn - 1) / p.bn);
+  p.grid = static_cast<int>(tiles < d.sms ? tiles : d.sms);
   return p;
 }
 
-template <int BN, int STORE, bool GROUPED = false>
-int launch(const Plan& p, const void* a, const void* b, void* c, int M, int N, int K,
-           long long ldc, const Epilogue& epi, cudaStream_t stream) {
-  if (p.stages < 2) return ERR_ARGS;
+// Whether the kernel takes `p` for this launch: the int8-wide normal mode
+// exactly plan() above; the packed library and the grouped mode a plan
+// whose tile, stages, split, slots and held groups fit the shapes and
+// whose shared memory is Layout's and within the device's.
+bool takes(const Plan& p, int M, int N, int K, int store, int group) {
+  const DeviceInfo& d = device_info();
+  const bool grouped = group != 0;
+  const int ksteps = (K + BK - 1) / BK;
+  if (!PACKED && !grouped) {
+    const Plan q = plan(M, N, K, store);
+    return p.bn == q.bn && p.stages == q.stages && p.grid == q.grid && p.smem == q.smem && p.split == 1 &&
+           !p.slots && !p.held && !p.held_rows;
+  }
+  if ((p.bn != 64 && p.bn != 128 && p.bn != 256) || (grouped && p.bn != 64) ||
+      (store == STORE_INT8 && p.bn == 256) || p.stages < 2 || p.stages > MAX_STAGES || p.split < 1 ||
+      p.split > MAX_SPLIT || p.held < 0 || p.held_rows < 0)
+    return false;
+  const long long tiles = static_cast<long long>((M + BM - 1) / BM) * ((N + p.bn - 1) / p.bn);
+  // The packed mode widens into 2 to MAX_SLOTS slots.
+  if (PACKED ? p.slots < 2 || p.slots > MAX_SLOTS : p.slots != 0) return false;
+  if (p.split == 1) {
+    if (p.grid != (tiles < d.sms ? tiles : d.sms) || p.held || p.held_rows) return false;
+  } else if (tiles * p.split != p.grid) {
+    return false;
+  } else if (!grouped) {
+    if (!PACKED || p.bn > 128 || p.split > ksteps || p.held || p.held_rows) return false;
+  } else {
+    const int unit = group / gcd_int(group, BK) * BK;
+    if (K % unit) return false;
+    const int units = K / unit;
+    if (p.split > units) return false;
+    int need = 0;  // the most groups a rank past 0 holds
+    for (int r = 1; r < p.split; ++r) {
+      const int n = (units * (r + 1) / p.split - units * r / p.split) * (unit / group);
+      need = n > need ? n : need;
+    }
+    const int rows = M >= BM ? BM : (M + 15) / 16 * 16;
+    if (p.held < need || p.held_rows != rows) return false;
+  }
+  const Layout l = make_layout(p.bn, grouped, store, p.stages, p.slots, p.split, p.held, p.held_rows);
+  return l.total == p.smem && p.smem <= d.smem;
+}
+
+typedef void (*Kernel)(CUtensorMap, CUtensorMap, CUtensorMap, Params, Epilogue);
+
+// The kernel's instantiation for a tile width, a store and the mode (13:
+// the int8 store has no 256-wide tile; the grouped mode stores f32 or int8
+// at BN = 64), or null.
+Kernel kernel_for(int bn, int store, bool grouped) {
+  if (grouped) {
+    if (bn != 64) return nullptr;
+    return store == STORE_F32 ? int8_gemm_kernel<64, STORE_F32, true>
+           : store == STORE_INT8 ? int8_gemm_kernel<64, STORE_INT8, true> : nullptr;
+  }
+  switch (bn * 4 + store) {
+    case 64 * 4 + STORE_INT32: return int8_gemm_kernel<64, STORE_INT32, false>;
+    case 64 * 4 + STORE_F32: return int8_gemm_kernel<64, STORE_F32, false>;
+    case 64 * 4 + STORE_BF16: return int8_gemm_kernel<64, STORE_BF16, false>;
+    case 64 * 4 + STORE_INT8: return int8_gemm_kernel<64, STORE_INT8, false>;
+    case 128 * 4 + STORE_INT32: return int8_gemm_kernel<128, STORE_INT32, false>;
+    case 128 * 4 + STORE_F32: return int8_gemm_kernel<128, STORE_F32, false>;
+    case 128 * 4 + STORE_BF16: return int8_gemm_kernel<128, STORE_BF16, false>;
+    case 128 * 4 + STORE_INT8: return int8_gemm_kernel<128, STORE_INT8, false>;
+    case 256 * 4 + STORE_INT32: return int8_gemm_kernel<256, STORE_INT32, false>;
+    case 256 * 4 + STORE_F32: return int8_gemm_kernel<256, STORE_F32, false>;
+    case 256 * 4 + STORE_BF16: return int8_gemm_kernel<256, STORE_BF16, false>;
+    default: return nullptr;
+  }
+}
+
+// The shared-memory opt-in, made once per instantiation (the device's most).
+cudaError_t opt_in(Kernel kernel) {
+  static Kernel done[16];
+  for (Kernel k : done)
+    if (k == kernel) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               device_info().smem);
+  if (err != cudaSuccess) return err;
+  for (Kernel& k : done)
+    if (!k) {
+      k = kernel;
+      break;
+    }
+  return cudaSuccess;
+}
+
+// A launch configuration of `grid` CTAs in clusters of `split` (none at 1).
+struct LaunchConfig {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  LaunchConfig(int grid, int split, int smem, cudaStream_t stream) {
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = split;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = split > 1 ? 1 : 0;
+  }
+};
+
+int launch(const Plan& p, const void* a, const void* b, void* c, int M, int N, int K, long long ldc,
+           int store, const Epilogue& epi, cudaStream_t stream) {
+  const bool grouped = epi.group != 0;
+  const Kernel kernel = kernel_for(p.bn, store, grouped);
+  if (!kernel) return ERR_ARGS;
   CUtensorMap ta, tb, tc;
   // B: int8[N, K], or packed uint8[N, K / 2] in 64-byte unswizzled boxes.
   const int kb = PACKED ? K / 2 : K;
-  if (!encode(&ta, a, 1, M, K, K, BM) || !encode(&tb, b, 1, N, kb, kb, BN, PACKED) ||
-      !encode(&tc, c, StoreTraits<STORE>::BYTES, M, N, ldc, 64, narrow_store(BN, STORE, GROUPED)))
+  const int esize = store == STORE_INT8 ? 1 : store == STORE_BF16 ? 2 : 4;
+  if (!encode(&ta, a, 1, M, K, K, BM) || !encode(&tb, b, 1, N, kb, kb, p.bn, PACKED) ||
+      !encode(&tc, c, esize, M, N, ldc, 64, narrow_store(p.bn, store, grouped)))
     return ERR_ENCODE;
-  auto kernel = int8_gemm_kernel<BN, STORE, GROUPED>;
-  static int smem_set = 0;  // per instantiation: the opt-in is made once
-  if (smem_set < p.smem) {
-    const int most = device_info().smem;
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = most;
-  }
-  kernel<<<p.grid, THREADS, p.smem, stream>>>(ta, tb, tc, M, N, K, p.stages, epi);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int STORE>
-int dispatch(const Plan& p, const void* a, const void* b, void* c, int M, int N, int K,
-             long long ldc, const Epilogue& epi, cudaStream_t s) {
-  if (epi.group) {  // the grouped mode stores f32 or int8, in 64-wide tiles
-    if constexpr (STORE == STORE_F32 || STORE == STORE_INT8)
-      return launch<64, STORE, true>(p, a, b, c, M, N, K, ldc, epi, s);
-    else
-      return ERR_ARGS;
-  }
-  if (p.bn == 64) return launch<64, STORE>(p, a, b, c, M, N, K, ldc, epi, s);
-  if constexpr (STORE == STORE_INT8) {  // plan() keeps the int8 store at BN <= 128
-    return launch<128, STORE>(p, a, b, c, M, N, K, ldc, epi, s);
+  const cudaError_t err = opt_in(kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int unit = grouped ? epi.group / gcd_int(epi.group, BK) * BK : 0;
+  const Params prm{M, N, K, p.stages, p.split, p.slots, p.held, p.held_rows, unit};
+  if (p.split > 1) {
+    LaunchConfig lc(p.grid, p.split, p.smem, stream);
+    cudaLaunchKernelEx(&lc.cfg, kernel, ta, tb, tc, prm, epi);
   } else {
-    return p.bn == 128 ? launch<128, STORE>(p, a, b, c, M, N, K, ldc, epi, s)
-                       : launch<256, STORE>(p, a, b, c, M, N, K, ldc, epi, s);
+    kernel<<<p.grid, THREADS, p.smem, stream>>>(ta, tb, tc, prm, epi);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -782,13 +1235,17 @@ int dispatch(const Plan& p, const void* a, const void* b, void* c, int M, int N,
 // (stores 1-3); rs: f32[M] or null; bias: f32[N] or null; zpw: int32[N] or
 // null; act: 0 none, 1 relu, 2 relu6. group > 0 is the grouped mode: gs
 // f32[G, N] and gzpw int32[G, N] with G = K / group, group a multiple of 32
-// that divides K, store 1 or 3, no zpw and no rs. Launches on `stream`,
-// allocates nothing, does not synchronize. Returns cudaGetLastError() after
-// the launch, or a negative code if the kernel was not launched.
+// that divides K, store 1 or 3, no zpw and no rs. bn .. held_rows: the
+// launch's plan (ops/int8_matmul.py::k1_plan), which the kernel checks.
+// Launches on `stream`, allocates nothing, does not synchronize. Returns
+// cudaGetLastError() after the launch, or a negative code if the kernel was
+// not launched (ERR_ARGS: shapes, alignment or a plan it does not take).
 extern "C" int int8_gemm(const void* a, const void* b, void* c, long long M, long long N,
                          long long K, long long ldc, int store, const void* cs, const void* rs,
                          const void* bias, const void* zpw, int act, float out_s, float out_zp,
-                         const void* gs, const void* gzpw, long long group, void* stream) {
+                         const void* gs, const void* gzpw, long long group, int bn, int stages,
+                         int grid, int smem, int split, int slots, int held, int held_rows,
+                         void* stream) {
   const long long big = 1LL << 31;
   const int esize = store == STORE_INT8 ? 1 : store == STORE_BF16 ? 2 : 4;
   if (M <= 0 || N <= 0 || K <= 0 || M >= big || N >= big || K >= big || K % (PACKED ? 32 : 16) != 0 ||
@@ -805,15 +1262,28 @@ extern "C" int int8_gemm(const void* a, const void* b, void* c, long long M, lon
                      qt::make_activation(act), qt::make_out_quant(out_s, out_zp, qt::make_activation(act).hi),
                      static_cast<const float*>(gs),
                      static_cast<const int32_t*>(gzpw), static_cast<int>(group)};
-  const auto s = static_cast<cudaStream_t>(stream);
   const int m = static_cast<int>(M), n = static_cast<int>(N), k = static_cast<int>(K);
-  const Plan p = plan(m, n, store, group != 0);
-  switch (store) {
-    case STORE_INT32: return dispatch<STORE_INT32>(p, a, b, c, m, n, k, ldc, epi, s);
-    case STORE_F32: return dispatch<STORE_F32>(p, a, b, c, m, n, k, ldc, epi, s);
-    case STORE_BF16: return dispatch<STORE_BF16>(p, a, b, c, m, n, k, ldc, epi, s);
-    default: return dispatch<STORE_INT8>(p, a, b, c, m, n, k, ldc, epi, s);
-  }
+  Plan p;
+  p.bn = bn, p.stages = stages, p.grid = grid, p.smem = smem, p.split = split, p.slots = slots,
+  p.held = held, p.held_rows = held_rows;
+  if (!takes(p, m, n, k, store, static_cast<int>(group))) return ERR_ARGS;
+  return launch(p, a, b, c, m, n, k, ldc, store, epi, static_cast<cudaStream_t>(stream));
+}
+
+// The clusters of `split` CTAs of one instantiation (bn, store, grouped)
+// with `smem` bytes of dynamic shared memory each that the device can run
+// at once (cudaOccupancyMaxActiveClusters), or a negative code.
+extern "C" int int8_gemm_max_clusters(int bn, int store, int grouped, int split, int smem) {
+  const Kernel kernel = kernel_for(bn, store, grouped != 0);
+  if (!kernel || split < 1 || split > MAX_SPLIT) return ERR_ARGS;
+  const cudaError_t err = opt_in(kernel);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  LaunchConfig lc(split, split, smem, nullptr);
+  lc.cfg.numAttrs = 1;
+  int clusters = 0;
+  const cudaError_t q =
+      cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<const void*>(kernel), &lc.cfg);
+  return q == cudaSuccess ? clusters : -static_cast<int>(q);
 }
 
 #if !QT_PACKED_B

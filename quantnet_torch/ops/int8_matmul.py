@@ -25,6 +25,14 @@ wrappers zero-pad A's K to K' (exact: zero nibbles). The grouped mode takes
 K' = K (a group that is a multiple of 32). The plain version widens B with
 torch ops.
 
+Every launch carries its plan (`k1_plan`, `launch_plan`): tile width, ring
+stages, grid and shared memory bytes (the int8-wide normal mode's are the
+kernel's own, which it checks for equality); for the packed and grouped
+modes also the number of widened B slots, a split of each
+tile's K over a thread-block cluster where the tiles number fewer than the
+SMs, and the groups a grouped rank holds. The kernel checks the plan and
+refuses one it does not take.
+
 B is taken as int8[N, K], K contiguous: weights are transposed once at
 quantize time (`QTensor.nk`), so both operands stream along K. The kernel's
 TMA loads take rows of a multiple of 16 bytes from 16-byte-aligned bases: the
@@ -35,6 +43,8 @@ on operands that are not contiguous or not aligned.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -126,6 +136,195 @@ class Epilogue:
                 raise ValueError(f"epilogue {name} must be {dtype}{list(shape)}, got {t.dtype}{tuple(t.shape)}")
             if t.get_device() != dev or not t.is_contiguous() or t.data_ptr() % 8:
                 raise ValueError(f"epilogue {name} must be contiguous and 8-byte aligned on {a.device}")
+
+
+# The kernel's launch geometry (csrc/int8_gemm.cu): output tiles of BM rows,
+# K staged BK bytes at a time through a ring of at most MAX_STAGES stages,
+# clusters of at most MAX_SPLIT CTAs; the H100's SMs and the shared memory a
+# block may opt in to.
+BM, BK, MAX_STAGES, MAX_SPLIT, ALIGN, OUT_BUF = 128, 128, 8, 8, 1024, 64 * 128
+H100_SMS, H100_SMEM = 132, 232448
+STORE_INT8 = _STORES[torch.int8]
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one K1 launch is laid out: tile width, ring stages, grid, dynamic
+    shared memory bytes; the CTAs of a cluster that split one tile's K
+    (`split`); the packed-B mode's widened weight slots (`slots`); the groups
+    a rank of a grouped split holds, of `held_rows` rows each."""
+
+    bn: int
+    stages: int
+    grid: int
+    smem: int
+    split: int = 1
+    slots: int = 0
+    held: int = 0
+    held_rows: int = 0
+
+    def args(self) -> Tuple[int, ...]:
+        """The kernel's plan arguments, in its C signature's order."""
+        return (self.bn, self.stages, self.grid, self.smem, self.split, self.slots, self.held,
+                self.held_rows)
+
+    def __str__(self) -> str:
+        where = f"{self.slots} widened slots" if self.slots else ""
+        if self.split > 1:
+            where = (f"{where}, " if where else "") + f"split {self.split} (cluster of {self.split})" + (
+                f", {self.held} groups x {self.held_rows} rows held" if self.held else "")
+        return (f"BN {self.bn}, {self.stages} stages, grid {self.grid}, {self.smem} B"
+                + (f", {where}" if where else ", split 1"))
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def wave_fill(tiles: int, sms: int) -> float:
+    """The share of the SMs busy over the waves of a persistent grid."""
+    return tiles / (_cdiv(tiles, sms) * sms)
+
+
+def out_bufs(bn: int, store: int, packed: bool, grouped: bool) -> int:
+    """A consumer's TMA store staging buffers: two at BN = 256 and for the
+    packed and grouped modes' int8 store, else four."""
+    return 2 if bn == 256 or ((packed or grouped) and store == STORE_INT8) else 4
+
+
+def layout_bytes(bn: int, packed: bool, grouped: bool, store: int, stages: int, slots: int = 0,
+                 split: int = 1, held: int = 0, held_rows: int = 0) -> int:
+    """The kernel's dynamic shared memory (csrc/int8_gemm.cu, make_layout):
+    alignment slack; the ring (A, then B: int8 BN x 128 or packed BN x 64
+    bytes a stage); the packed mode's `slots` widened B slots; a packed
+    split's int32 partials; a grouped split's held t_g; both consumers'
+    staging buffers; the barriers."""
+    stage = BM * BK + (bn * BK // 2 if packed else bn * BK)
+    wide = slots * bn * BK if packed else 0
+    reduce = 2 * 64 * bn * 4 if packed and not grouped and split > 1 else 0
+    held_b = held * held_rows * bn * 4 if grouped and split > 1 else 0
+    staging = 2 * out_bufs(bn, store, packed, grouped) * OUT_BUF
+    bars = 2 * MAX_STAGES * 8 if not packed and split == 1 else 256
+    return ALIGN + stages * stage + wide + reduce + held_b + staging + bars
+
+
+def split_ranges(units: int, split: int):
+    """The contiguous [lo, hi) of `units` that each of `split` ranks takes,
+    as the kernel cuts them."""
+    return [(units * r // split, units * (r + 1) // split) for r in range(split)]
+
+
+def k1_plan(m: int, n: int, k: int, store: int, group: Optional[int] = None, packed: bool = False,
+            sms: int = H100_SMS, smem: int = H100_SMEM, split: Optional[int] = None,
+            slots: Optional[int] = None, clusters_fit=None) -> Plan:
+    """The launch plan the kernel takes (csrc/int8_gemm.cu checks it).
+
+    The tile: the narrowest that covers N, up to 256 (A is read once). Past
+    128, 128-wide tiles for the int8 store and where 256-wide ones would
+    leave much of the last wave idle; the grouped mode takes 64-wide tiles.
+    As many ring stages as fit, and one persistent block per SM (the
+    int8-wide normal mode: exactly the kernel's own plan()).
+
+    The packed mode widens B into the most slots, of 4, 3 and 2, that leave
+    the ring the int8-wide launch's stages (else 2; 2 in a normal-mode
+    split).
+
+    A cluster of `split` CTAs per tile where the tiles number fewer than the
+    SMs and a split measured faster on an H100 (PERF.md §6): the packed
+    normal mode at 16 K stages or more, a quarter of them a rank; the
+    grouped mode at M <= 64 (16 rows held a warp) and 8 units of
+    lcm(group, BK) rows or more, two a rank. At most MAX_SPLIT, as many as fill the SMs, with at least
+    two ring stages beside the groups a grouped rank holds (`held` of
+    `held_rows` rows: capped by shared memory, never spilled), and
+    `clusters_fit(bn, store, grouped, split, smem)` (the card's
+    cudaOccupancyMaxActiveClusters) where given. `split` and `slots` force a
+    choice (for measuring one against another); the kernel still checks the
+    plan."""
+    grouped = group is not None
+    mt = _cdiv(m, BM)
+    if n <= 64 or grouped:
+        bn = 64
+    elif n <= 128 or store == STORE_INT8 or (
+            wave_fill(mt * _cdiv(n, 128), sms) > wave_fill(mt * _cdiv(n, 256), sms) + 0.15):
+        bn = 128
+    else:
+        bn = 256
+    tiles, ksteps = mt * _cdiv(n, bn), _cdiv(k, BK)
+
+    def fit(s=1, held=0, held_rows=0, n_slots=0):
+        fixed = layout_bytes(bn, packed, grouped, store, 0, n_slots, s, held, held_rows)
+        stage = layout_bytes(bn, packed, grouped, store, 1, n_slots, s, held, held_rows) - fixed
+        stages = min(MAX_STAGES, (smem - fixed) // stage)
+        return Plan(bn, stages, tiles * s if s > 1 else min(tiles, sms),
+                    fixed + stages * stage, s, n_slots, held, held_rows)
+
+    if not (packed or grouped):
+        return fit()
+    n_slots = 0 if not packed else slots if slots is not None else next(
+        (c for c in (4, 3) if fit(n_slots=c).stages >= k1_plan(m, n, k, store, group, sms=sms, smem=smem,
+                                                               split=1).stages), 2)
+    if split is not None:
+        want = split
+    elif tiles >= sms:
+        want = 1
+    elif grouped:
+        want = sms // tiles if m <= 64 else 1
+    else:
+        want = min(sms // tiles, ksteps // 4) if ksteps >= 16 else 1
+    if grouped:
+        unit = group * BK // math.gcd(group, BK)
+        units = k // unit if k % unit == 0 else 0
+        top = min(want, MAX_SPLIT, units if split is not None else units // 2 if units >= 8 else 1)
+        for s in range(top, 1, -1):
+            held = max((hi - lo) * (unit // group) for lo, hi in split_ranges(units, s)[1:])
+            p = fit(s, held, BM if m >= BM else _cdiv(m, 16) * 16, n_slots)
+            if p.stages >= 2 and (clusters_fit is None or clusters_fit(bn, store, True, s, p.smem)):
+                return p
+    elif bn <= 128:
+        for s in range(min(want, MAX_SPLIT, ksteps), 1, -1):
+            # Two slots beside the partials' area: a rank has few stages.
+            p = fit(s, n_slots=slots if slots is not None else 2)
+            if p.stages >= 2 and (clusters_fit is None or clusters_fit(bn, store, False, s, p.smem)):
+                return p
+    if split not in (None, 1):
+        raise ValueError(f"no split of {split} fits {m}x{k}x{n}")
+    return fit(n_slots=n_slots)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_limits(index: int) -> Tuple[int, int]:
+    """(SMs, shared memory a block may opt in to) of a CUDA device."""
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, getattr(props, "shared_memory_per_block_optin", H100_SMEM)
+
+
+@functools.lru_cache(maxsize=None)
+def _clusters_fit(index: int, packed: bool, bn: int, store: int, grouped: bool, split: int,
+                  smem: int) -> bool:
+    """Whether the card runs clusters of `split` CTAs of this instantiation
+    with `smem` bytes each (cudaOccupancyMaxActiveClusters >= 1)."""
+    fn = _build.function("int8_gemm_packed" if packed else "int8_gemm", "int8_gemm_max_clusters",
+                         [ctypes.c_int] * 5)
+    with torch.cuda.device(index):
+        return fn(bn, store, int(grouped), split, smem) >= 1
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(index: int, m: int, n: int, k: int, store: int, group: Optional[int], packed: bool) -> Plan:
+    if index < 0:
+        return k1_plan(m, n, k, store, group, packed)
+    sms, smem = _device_limits(index)
+    return k1_plan(m, n, k, store, group, packed, sms, smem,
+                   clusters_fit=functools.partial(_clusters_fit, index, packed))
+
+
+def launch_plan(a: torch.Tensor, b_nk: torch.Tensor, epi: Optional[Epilogue] = None) -> Plan:
+    """The plan of the launch that `int8_gemm(_epilogue)` makes for these
+    operands (an H100's for CPU tensors)."""
+    packed = is_packed(b_nk)
+    k = gemm_width(b_nk) if packed else _cdiv(a.shape[1], K_ALIGN) * K_ALIGN
+    return _plan(a.get_device(), a.shape[0], b_nk.shape[0], k, 0 if epi is None else _STORES[epi.out],
+                 None if epi is None else epi.group, packed)
 
 
 def is_packed(b_nk: torch.Tensor) -> bool:
@@ -233,10 +432,12 @@ def _operands(a: torch.Tensor, b_nk: torch.Tensor, pad: bool = True) -> Tuple[to
     return pad_k(a, b_nk) if pad else (a, b_nk)
 
 
-def _launch(a: torch.Tensor, b: torch.Tensor, epi: Optional[Epilogue]) -> torch.Tensor:
-    """Runs the kernel into a new [M, N] tensor of the store's type. Its rows
-    are allocated a multiple of 16 bytes wide (TMA's row stride); where N
-    falls short of that, the result is a view of the first N columns."""
+def _launch(a: torch.Tensor, b: torch.Tensor, epi: Optional[Epilogue],
+            plan: Optional[Plan] = None) -> torch.Tensor:
+    """Runs the kernel, with `plan` or launch_plan's, into a new [M, N]
+    tensor of the store's type. Its rows are allocated a multiple of 16
+    bytes wide (TMA's row stride); where N falls short of that, the result
+    is a view of the first N columns."""
     m, k = a.shape
     n = b.shape[0]
     dtype = torch.int32 if epi is None else epi.out
@@ -256,8 +457,9 @@ def _launch(a: torch.Tensor, b: torch.Tensor, epi: Optional[Epilogue]) -> torch.
             grouped = (epi.gs.data_ptr(), epi.gzpw.data_ptr(), epi.group)
     packed = is_packed(b)
     fn = _build.kernel("int8_gemm_packed" if packed else "int8_gemm")
+    plan = launch_plan(a, b, epi) if plan is None else plan
     args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, ldc, store, *ptrs, act, out_s,
-            out_zp, *grouped)
+            out_zp, *grouped, *plan.args())
     dev = a.get_device()
     # The raw current device and stream: torch.cuda.current_stream() builds
     # a Stream object, several microseconds of host time on every launch.
@@ -284,10 +486,13 @@ def int8_gemm(a: torch.Tensor, b_nk: torch.Tensor) -> torch.Tensor:
     return _launch(a, b_nk, None)
 
 
-def int8_gemm_epilogue(a: torch.Tensor, b_nk: torch.Tensor, epi: Epilogue) -> torch.Tensor:
+def int8_gemm_epilogue(a: torch.Tensor, b_nk: torch.Tensor, epi: Epilogue,
+                       plan: Optional[Plan] = None) -> torch.Tensor:
     """The int8 GEMM with `epi` fused into the kernel's store -> epi.out[M,N]:
     the kernel on a CUDA tensor, the plain version on a CPU tensor. The
-    kernel's grouped mode takes a group that is a multiple of GROUP_ALIGN."""
+    kernel's grouped mode takes a group that is a multiple of GROUP_ALIGN.
+    `plan` replaces launch_plan's (k1_plan with a forced split or slot
+    count, to measure one layout against another); the kernel checks it."""
     a, b_nk = _operands(a, b_nk, pad=epi.group is None)
     epi.check(a.shape[0], b_nk.shape[0], a.shape[1], a)
     if a.device.type == "cpu":
@@ -298,7 +503,7 @@ def int8_gemm_epilogue(a: torch.Tensor, b_nk: torch.Tensor, epi: Epilogue) -> to
     if epi.group is not None and gemm_width(b_nk) != a.shape[1]:
         raise ValueError(f"the grouped mode takes a packed B of exactly K = {a.shape[1]}, "
                          f"got K' = {gemm_width(b_nk)}")
-    return _launch(a, b_nk, epi)
+    return _launch(a, b_nk, epi, plan)
 
 
 def requantize(y: torch.Tensor, out_quant: ActQuant) -> torch.Tensor:
@@ -335,6 +540,27 @@ def requantize_cases(scale: float, device) -> torch.Tensor:
     steps = torch.arange(-16, 17, device=device, dtype=torch.int32)
     ties = (halves.view(torch.int32)[:, None] + steps).view(torch.float32).reshape(-1)
     return torch.cat([sign * mant * torch.exp2(expo), near, ties, torch.zeros(64, device=device)])
+
+
+def grouped_order_epilogue(m: int, k: int, n: int, group: int, out: torch.dtype, device,
+                           seed: int = 0) -> Epilogue:
+    """A grouped-mode epilogue on whose inputs the f32 fold's order shows:
+    each group's weight scale 2^e (1 + u), e uniform in -14..14, so the t_g
+    of one column span some 2^28 and a sum taken in another order rounds
+    otherwise; zero-point corrections of +-30000; cs = 2^-30 brings y to
+    O(1) (f32 store, or relu and the int8 store)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    groups = k // group
+    e = torch.randint(-14, 15, (groups, n), generator=g, device=device).float()
+    gs = torch.exp2(e) * (1.0 + torch.rand((groups, n), generator=g, device=device))
+    gzpw = torch.randint(-30000, 30000, (groups, n), generator=g, device=device, dtype=torch.int32)
+    cs = torch.full((n,), 2.0 ** -30, device=device)
+    bias = torch.randn((n,), generator=g, device=device)
+    if out == torch.int8:
+        oq = ActQuant(torch.tensor(0.05, device=device), torch.tensor(-3, dtype=torch.int32, device=device))
+        return Epilogue(cs=cs, bias=bias, act="relu", out=torch.int8, out_quant=oq, group=group, gs=gs,
+                        gzpw=gzpw)
+    return Epilogue(cs=cs, bias=bias, group=group, gs=gs, gzpw=gzpw)
 
 
 int8_gemm.launches = 0
